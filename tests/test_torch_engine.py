@@ -1,0 +1,245 @@
+"""The port's device engine and query engine, end to end on the CPU, against
+the JAX package: the same resident state, the same query results through
+``db.execute_query``, and the fuzzed device==host check. All results are
+integers or exact bitsets: the tolerance is equality."""
+
+import json
+import os
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import lapis_silo_torch
+from lapis_silo_tpu.ops import device_engine as ref_de
+from lapis_silo_tpu.query import ast
+from lapis_silo_tpu.query.engine import Query
+from lapis_silo_tpu.query.ir import HostEvaluator
+from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+from lapis_silo_torch.ops import kernels
+from lapis_silo_torch.ops.device_engine import (
+    DeviceEngine, build_state, state_from_reference,
+)
+from lapis_silo_torch.ops.vm import ProgramTooLarge, StructureMismatch
+
+from .test_fuzz_filters import ALL_EXPRESSION_TYPES, random_filter
+
+CPU = torch.device("cpu")
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _mutations_queries(db, n):
+    """Selective Mutations queries: one leaf at a mutated (symbol, position)
+    each, with and without a minimum proportion, over several segments."""
+    rng = np.random.default_rng(11)
+    ref = db.reference_genomes.nucleotide_ids["main"]
+    out = []
+    for i in range(n):
+        pos = int(rng.integers(0, len(ref)))
+        symbol = "ACGT"[int(ref[pos]) % 4]
+        filt = ({"type": "NucleotideEquals", "position": pos + 1,
+                 "symbol": symbol} if i % 2 == 0 else
+                {"type": "Or", "children": [
+                    {"type": "HasNucleotideMutation", "position": pos + 1},
+                    {"type": "IntBetween", "column": "age", "from": 90,
+                     "to": 99}]})
+        out.append(json.dumps({
+            "action": {"type": "Mutations", "minProportion": 0.0 if i < 2 else 0.05},
+            "filterExpression": filt}))
+    return out
+
+
+@pytest.mark.parametrize("rich", [False, True])
+def test_state_from_reference_equals_own_build(rich):
+    db = synthetic_database(1500, 300, n_partitions=3, seed=2, rich=rich)
+    ref = ref_de.DeviceEngine(db, devices=jax.devices()[:1])
+    converted = state_from_reference(np.asarray(ref.bank),
+                                     np.asarray(ref.full_masks),
+                                     ref.segment_meta, CPU)
+    own = build_state(db, CPU)
+    assert torch.equal(own.bank, converted.bank)
+    assert torch.equal(own.full_masks, converted.full_masks)
+    assert own.segment_meta.keys() == converted.segment_meta.keys()
+    for key, want in converted.segment_meta.items():
+        got = own.segment_meta[key]
+        assert got.keys() == want.keys()
+        for name, value in want.items():
+            np.testing.assert_array_equal(got[name], value, err_msg=name)
+    engine = DeviceEngine(db, CPU, state=converted)
+    assert engine.evaluate(Query(sample_count_queries(db, 1)[0]).filter)
+
+
+def test_slice_end_to_end_matches_jax_engine():
+    """Two corpora from one seed: one served by the JAX package's engine,
+    one by the port after install(); 64 counts and 4 Mutations queries give
+    identical result dicts, and the port's path ran its kernels' wrappers."""
+    ref_db = synthetic_database(3000, 600, n_partitions=2, seed=21)
+    port_db = synthetic_database(3000, 600, n_partitions=2, seed=21)
+    lapis_silo_torch.install(port_db, CPU)
+    # a filter past the instruction cap: both engines evaluate it on the
+    # host, and Mutations then reduces host bitsets on the device
+    wide = json.dumps({
+        "action": {"type": "Mutations", "minProportion": 0.0},
+        "filterExpression": {"type": "Or", "children": [
+            {"type": "HasNucleotideMutation", "position": p}
+            for p in range(1, 600)]}})
+    queries = (sample_count_queries(ref_db, 64, seed=8)
+               + _mutations_queries(ref_db, 4) + [wide])
+    kernels.reset_counts()
+    for query in queries:
+        assert port_db.execute_query(query) == ref_db.execute_query(query), query
+    assert kernels.VM_RUN.plain_launches > 0
+    assert kernels.MUTATION_COUNTS.plain_launches > 0
+    assert port_db._engine._use_device
+
+
+def _host_words(db, query):
+    out = []
+    for partition in db.partitions:
+        node = query.filter.compile(db, partition, ast.NONE)
+        out.append(HostEvaluator(partition.sequence_count).evaluate(node))
+    return out
+
+
+def test_fuzz_device_vs_host_on_port():
+    """tests/test_fuzz_filters.py's random-tree check, run by the port's
+    engine: device bitsets equal the host oracle's, batched counts equal
+    per-query host counts."""
+    db = synthetic_database(999, 333, n_partitions=3, seed=7, rich=True)
+    engine = DeviceEngine(db, CPU)
+    rng = random.Random(42)
+    seen: set = set()
+    filters, counts = [], []
+    for _ in range(150):
+        query = Query(json.dumps({
+            "filterExpression": random_filter(rng, db, seen=seen),
+            "action": {"type": "Aggregated"}}))
+        host = _host_words(db, query)
+        try:
+            device = engine.evaluate(query.filter)
+        except (ProgramTooLarge, StructureMismatch):
+            continue
+        for a, b in zip(host, device, strict=True):
+            np.testing.assert_array_equal(a, b)
+        filters.append(query.filter)
+        counts.append(sum(int(np.bitwise_count(w).sum()) for w in host))
+    assert len(filters) >= 110
+    assert not ALL_EXPRESSION_TYPES - seen
+    batched = []
+    for i in range(0, len(filters), 16):
+        batched.extend(engine.count_batch(filters[i: i + 16]))
+    assert batched == counts
+
+
+@pytest.mark.parametrize("max_bucket,n_dyn_leaves", [(64, 0), (None, 300)])
+def test_wide_batches_split_and_stay_exact(max_bucket, n_dyn_leaves):
+    """A batch past the instruction cap or the dyn-row cap splits into
+    several launches; the counts still equal per-query host counts."""
+    db = synthetic_database(700, 150, n_partitions=2, seed=13)
+    engine = DeviceEngine(db, CPU)
+    queries = sample_count_queries(db, 40, seed=6)
+    queries += [json.dumps({"action": {"type": "Aggregated"},
+                            "filterExpression": {"type": "And", "children": [
+                                {"type": "IntBetween", "column": "age",
+                                 "from": i % 50, "to": 50 + i % 49},
+                                {"type": "HasNucleotideMutation",
+                                 "position": 1 + i % 150}]}})
+                for i in range(n_dyn_leaves)]
+    filters = [Query(q).filter for q in queries]
+    lowered = [engine.lower(f)[0] for f in filters]
+    dispatches = engine.count_dispatches(lowered, max_bucket=max_bucket)
+    assert len(dispatches) > 1
+    want = [sum(int(np.bitwise_count(w).sum())
+                for w in _host_words(db, Query(q))) for q in queries]
+    assert engine.count_finish([None] * len(lowered), list(range(len(lowered))),
+                               dispatches) == want
+
+
+def test_concurrent_counts_coalesce_exactly():
+    """Many threads through db.execute_query: the micro-batcher coalesces
+    them into shared launches and every caller gets its own count."""
+    import concurrent.futures
+    import threading
+
+    db = synthetic_database(800, 200, n_partitions=2, seed=17)
+    queries = sample_count_queries(db, 96, seed=9)
+    want = [db.execute_query(q) for q in queries]  # the JAX package's engine
+    db._engine = None
+    lapis_silo_torch.install(db, CPU)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(24) as pool:
+            got = list(pool.map(db.execute_query, queries, timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    assert got == want
+    batcher = db.device_engine._batcher
+    assert batcher is not None and batcher._thread.is_alive()
+    assert threading.active_count() < 64
+
+
+def test_two_tier_database_is_refused(monkeypatch):
+    monkeypatch.setenv("SILO_DENSE_BANK_BUDGET_GB", "0.00001")
+    db = synthetic_database(512, 200, n_partitions=2, seed=1)
+    with pytest.raises(NotImplementedError, match="two-tier"):
+        lapis_silo_torch.install(db, CPU)
+
+
+def test_query_engine_falls_back_only_on_program_limits():
+    """ProgramTooLarge answers from the host for that query alone; any other
+    device failure reaches the caller and leaves the device path on."""
+    db = synthetic_database(600, 200, n_partitions=2, seed=3)
+    engine = lapis_silo_torch.install(db, CPU)
+    query = sample_count_queries(db, 2, seed=4)[1]
+    want = db.execute_query(query)
+
+    def too_large(*_args, **_kwargs):
+        raise ProgramTooLarge("test")
+
+    engine.count_coalesced = too_large
+    assert db.execute_query(query) == want
+
+    def broken(*_args, **_kwargs):
+        raise ImportError("test")
+
+    engine.count_coalesced = broken
+    with pytest.raises(ImportError):
+        db.execute_query(query)
+    assert db._engine._use_device
+
+
+def test_port_runs_with_jax_blocked():
+    """A process where importing jax fails imports the port and answers a
+    count and a Mutations query from it, equal to the host oracle."""
+    script = """
+import sys
+sys.modules["jax"] = None
+import json, torch
+import lapis_silo_torch
+from lapis_silo_tpu.query.engine import QueryEngine
+from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+db = synthetic_database(500, 120, n_partitions=2, seed=5)
+oracle = QueryEngine(db, use_device=False)
+mutations = json.dumps({"action": {"type": "Mutations", "minProportion": 0.0},
+                        "filterExpression": {"type": "IntBetween",
+                                             "column": "age", "from": 1, "to": 20}})
+want = [oracle.execute(q) for q in (sample_count_queries(db, 4)[3], mutations)]
+lapis_silo_torch.install(db, torch.device("cpu"))
+got = [db.execute_query(q) for q in (sample_count_queries(db, 4)[3], mutations)]
+assert got == want, (got, want)
+assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+            if sys.modules[m] is not None]
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    done = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.strip() == "ok"
