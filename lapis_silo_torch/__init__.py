@@ -4,7 +4,7 @@ hand-written CUDA kernels for NVIDIA Hopper.
 The host layers (storage, snapshots, the JSON query language and its
 actions) are the reference package's, ``lapis_silo_tpu``, which they import
 without JAX. This package replaces the device layer: ``ops/`` holds the ISA,
-the lowering, the dense device engine and the kernels (``csrc/``), and
+the lowering, the two-tier device engine and the kernels (``csrc/``), and
 ``query/engine.py`` the query engine that drives them. No module here imports
 ``jax``.
 

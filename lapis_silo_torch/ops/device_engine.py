@@ -1,30 +1,44 @@
 """Device engine of the port: filters, counts and Mutations on a torch device.
 
 The counterpart of ``lapis_silo_tpu/ops/device_engine.py`` with its public
-surface for the host layers (``query/engine.py``, ``query/actions.py``), for
-the dense tier only:
+surface for the host layers (``query/engine.py``, ``query/actions.py``, the
+watcher and the fast path):
 
-- The index lives on the device as ONE bank ``[R, PW]`` of int32-held u32
-  words: R = every stored (segment, symbol, position) row, PW = partitions x
-  words per partition (the partition axis folds into the word axis, so
-  partition p's sequences occupy words [p*W, (p+1)*W)). Rows are contiguous
-  and unaligned: the reference's 3-D ``[R, PW/128, 128]`` layout and
-  ROW_BLOCK alignment are TPU tiling workarounds, and without them the port's
-  ``row_map`` and word offsets equal the JAX engine's on the CPU.
+- Every stored (segment, symbol, position) row that is not the global
+  majority symbol at its position lives in one of two tiers. The dense bank
+  ``[R, PW]`` holds int32-held u32 words over the flat global word axis (PW =
+  partitions x words per partition; partition p's sequences occupy words
+  [p*W, (p+1)*W)). Rows are contiguous and unaligned: the reference's 3-D
+  ``[R, PW/128, 128]`` layout and ROW_BLOCK alignment are TPU tiling
+  workarounds, and without them ``row_map`` equals the JAX engine's on the
+  CPU.
+- When the all-dense bank would exceed the reference's budget
+  (SILO_DENSE_BANK_BUDGET_GB, 12 GiB), rows with fewer than PW/8 non-zero
+  words that are no partition's implicit majority move to the sparse tier: a
+  CSR stream of their non-zero words, two flat int32 tensors ``idx`` (global
+  word index) and ``words``, partition-major, with one (start, len) per
+  (leaf, partition). The reference's block-interleaved stream and its
+  padding are Mosaic workarounds and are gone.
 - A filter lowers to a register-machine program (``ops/lowering.py``); a
   batch of count queries concatenates into one program with one EMIT_COUNT
-  per query and runs as ONE launch of the VM kernel (``ops/kernels.py``).
-- Mutations reduces popcount(row & filter) for every stored row with the
-  Mutations kernel; majority rows reconstruct as |filter| minus the stored
-  counts at their position.
+  per query and runs as ONE launch of the VM kernel. B_SPARSE operands name
+  sparse leaves: before the VM launch, missed leaves are densified into rows
+  of the hot-leaf pool ``[C + 1, PW]`` (an SLRU cache of leaf rows) and the
+  VM reads the pool; without the pool, or on the cold-sweep bypass, the
+  leaves are densified into a ``[K, PW]`` block the VM reads instead.
+- Mutations reduces popcount(row & filter) for every dense row with the
+  Mutations kernel and for every sparse leaf over the stream with the
+  sparse-counts kernel; majority rows reconstruct as |filter| minus the
+  stored counts at their position.
 
-Databases whose all-dense bank exceeds the reference's budget would need the
-two-tier bank (CSR sparse tier and hot-leaf pool), which is not ported: the
-engine refuses them at construction with NotImplementedError.
+The engine launches on the device's default stream, whichever thread calls
+(the micro-batcher's or a caller's): a pool update may overwrite a slot that
+an earlier VM launch reads, and one stream runs them in order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import weakref
@@ -42,32 +56,42 @@ from .reductions import popcount_words
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
     M_MOVB, M_OR, M_XOR, MAX_BATCH_QUERIES, NO_DST, SERVE_LEN_BUCKET,
-    SPARSE_BANK_BUDGET_GB, _BATCH_LEN_BUCKETS, _DYN_BUCKETS, _LEN_BUCKETS,
-    _REG_BUCKETS, _Program, _round_instr, pack_code_array, ProgramTooLarge,
+    SPARSE_BANK_BUDGET_GB, SPARSE_DENSITY_CUTOFF, _BATCH_LEN_BUCKETS,
+    _DYN_BUCKETS, _LEN_BUCKETS, _REG_BUCKETS, _SPARSE_E_MAX,
+    _SPARSE_K_BUCKETS, _SPARSE_K_BYTE_CAP, _Program, _round_instr,
+    _smem_k_cap, pack_code_array, ProgramTooLarge, wire_bsrc, wire_opcode,
 )
 from .words import to_device, to_host
 
 
 @dataclass
-class DenseState:
-    """What the engine keeps resident: per-segment row layout, the bank
-    [R, PW] and the valid-sequence masks [PW] (int32 tensors)."""
+class BankState:
+    """What the engine keeps resident: per-segment row layout, the dense
+    bank [R, PW] and the valid-sequence masks [PW] (int32 tensors), and with
+    the sparse tier on, its CSR stream (idx, words [E] int32 tensors) and
+    the per-(leaf, partition) bounds into it (host int64 [n_sparse, P])."""
 
     segment_meta: dict
     bank: torch.Tensor
     full_masks: torch.Tensor
+    sparse_idx: torch.Tensor | None = None
+    sparse_words: torch.Tensor | None = None
+    sparse_starts_pp: np.ndarray | None = None
+    sparse_lengths_pp: np.ndarray | None = None
 
 
 class VmArgs(NamedTuple):
     """One VM launch, on the host: the wire code block [2, bucket], the
     instruction count to run (rounded), the dyn rows (per dyn leaf, per
-    partition words), the dyn bucket and the register bucket."""
+    partition words), the dyn bucket, the register bucket, and the sparse
+    leaves (global sparse-row ids) that B_SPARSE operands index."""
 
     code: np.ndarray
     n_instr: int
     dyn_rows: list
     n_dyn: int
     n_regs: int
+    sparse_leaves: list
 
 
 def _segments(database) -> list[tuple[str, str]]:
@@ -80,14 +104,75 @@ def _segment(partition, kind: str, name: str):
             else partition.aa_sequences[name])
 
 
-def build_state(database, device: torch.device) -> DenseState:
-    """The dense bank of `database` on `device`, laid out as the reference's
-    DeviceEngine does on one device without Pallas (device_engine.py:123-297):
-    per segment, every (symbol, position) row present in some partition and
-    not the global majority symbol at its position, position-major."""
+def _sparse_mask(partitions, kind: str, name: str, sym_ids, pos_ids,
+                 flat_words: int) -> np.ndarray:
+    """Which stored rows go sparse (device_engine.py:190-204): no partition
+    holds them as its implicit majority, and their non-zero words, summed
+    over partitions, are at most 1/SPARSE_DENSITY_CUTOFF of the flat row."""
+    total_nnz = np.zeros(len(sym_ids), dtype=np.int64)
+    majority_somewhere = np.zeros(len(sym_ids), dtype=bool)
+    for partition in partitions:
+        seg = _segment(partition, kind, name)
+        local = seg.row_map[sym_ids, pos_ids]
+        majority_somewhere |= local == -2
+        stored = local >= 0
+        total_nnz[stored] += seg.store.row_nnz()[local[stored]]
+    return ~majority_somewhere & (
+        total_nnz * SPARSE_DENSITY_CUTOFF <= flat_words)
+
+
+def _sparse_stream(partitions, segments, segment_meta, n_sparse: int,
+                   n_words: int):
+    """The partition-major CSR stream of the sparse rows
+    (device_engine.py:310-347): for each partition, each segment's sparse
+    rows in sparse-id order, each row's non-zero words as (global word
+    index, word). Returns (idx int32 [E], words uint32 [E], starts and
+    lengths int64 [n_sparse, P])."""
+    starts_pp = np.zeros((n_sparse, len(partitions)), dtype=np.int64)
+    lens_pp = np.zeros((n_sparse, len(partitions)), dtype=np.int64)
+    idx_chunks, word_chunks = [], []
+    offset = 0
+    for pi, partition in enumerate(partitions):
+        for kind, name in segments:
+            meta = segment_meta[(kind, name)]
+            if not len(meta["sparse_sym_ids"]):
+                continue
+            local = _segment(partition, kind, name).row_map[
+                meta["sparse_sym_ids"], meta["sparse_pos_ids"]]
+            stored = np.nonzero(local >= 0)[0]
+            if not len(stored):
+                continue
+            idx, words, lengths = _segment(
+                partition, kind, name).store.gather_rows_csr(local[stored])
+            leaves = meta["sparse_base"] + stored
+            within = np.zeros(len(lengths), dtype=np.int64)
+            np.cumsum(lengths[:-1], out=within[1:])
+            starts_pp[leaves, pi] = offset + within
+            lens_pp[leaves, pi] = lengths
+            offset += int(lengths.sum())
+            idx_chunks.append(idx.astype(np.int64) + pi * n_words)
+            word_chunks.append(words)
+    idx = (np.concatenate(idx_chunks) if idx_chunks
+           else np.zeros(0, np.int64)).astype(np.int32)
+    words = (np.concatenate(word_chunks) if word_chunks
+             else np.zeros(0, np.uint32))
+    return idx, words, starts_pp, lens_pp
+
+
+def build_state(database, device: torch.device,
+                sparse_min_words: int | None = None) -> BankState:
+    """The two-tier bank of `database` on `device`, laid out as the
+    reference's DeviceEngine does on one device without Pallas
+    (device_engine.py:123-414): per segment, every (symbol, position) row
+    present in some partition and not the global majority symbol at its
+    position, position-major, split between the dense bank and the sparse
+    tier. The tier is on when the all-dense bank would exceed the budget,
+    or, with `sparse_min_words` (tests), when the flat row has at least that
+    many words."""
     partitions = database.partitions
     n_partitions = len(partitions)
     n_words = max(bitset.words_for(p.sequence_count) for p in partitions)
+    flat_words = n_partitions * n_words
     segments = _segments(database)
     totals_by_segment = {}
     for kind, name in segments:
@@ -97,21 +182,22 @@ def build_state(database, device: torch.device) -> DenseState:
             totals = cnt if totals is None else totals + cnt
         totals_by_segment[(kind, name)] = totals
 
-    # the reference's tier decision (device_engine.py:161-171) with this
-    # layout's row alignment of 1: the sparse tier switches on only when the
-    # all-dense bank would exceed the budget
-    projected_rows = 0
-    for totals in totals_by_segment.values():
-        present = totals > 0
-        present[np.argmax(totals, axis=0), np.arange(totals.shape[1])] = False
-        projected_rows += int(present.sum())
-    budget = int(float(os.environ.get(
-        "SILO_DENSE_BANK_BUDGET_GB", SPARSE_BANK_BUDGET_GB)) * 2**30)
-    if 4 * n_partitions * projected_rows * n_words > budget:
-        raise NotImplementedError("two-tier bank not ported yet")
+    # the reference's tier decision (device_engine.py:150-171) with this
+    # layout's row alignment of 1
+    if sparse_min_words is not None:
+        sparse_enabled = flat_words >= sparse_min_words
+    else:
+        projected_rows = 0
+        for totals in totals_by_segment.values():
+            present = totals > 0
+            present[np.argmax(totals, axis=0), np.arange(totals.shape[1])] = False
+            projected_rows += int(present.sum())
+        budget = int(float(os.environ.get(
+            "SILO_DENSE_BANK_BUDGET_GB", SPARSE_BANK_BUDGET_GB)) * 2**30)
+        sparse_enabled = 4 * projected_rows * flat_words > budget
 
     segment_meta: dict[tuple[str, str], dict] = {}
-    offset = 0
+    offset = n_sparse = 0
     for kind, name in segments:
         totals = totals_by_segment[(kind, name)]
         majority = np.argmax(totals, axis=0)  # [L]
@@ -121,25 +207,35 @@ def build_state(database, device: torch.device) -> DenseState:
         sym_ids, pos_ids = np.nonzero(present)
         order = np.lexsort((sym_ids, pos_ids))  # position-major
         sym_ids, pos_ids = sym_ids[order], pos_ids[order]
+        if sparse_enabled and len(sym_ids):
+            sparse = _sparse_mask(partitions, kind, name, sym_ids, pos_ids,
+                                  flat_words)
+        else:
+            sparse = np.zeros(len(sym_ids), dtype=bool)
+        dense = ~sparse
+        n_dense, n_seg_sparse = int(dense.sum()), int(sparse.sum())
         row_map = np.full((s_count, length), -1, dtype=np.int64)
         row_map[majority, np.arange(length)] = -2
-        row_map[sym_ids, pos_ids] = offset + np.arange(len(sym_ids))
+        row_map[sym_ids[dense], pos_ids[dense]] = offset + np.arange(n_dense)
+        sparse_map = np.full((s_count, length), -1, dtype=np.int64)
+        sparse_map[sym_ids[sparse], pos_ids[sparse]] = (
+            n_sparse + np.arange(n_seg_sparse))
         segment_meta[(kind, name)] = {
-            "offset": offset, "n_stored": len(sym_ids),
+            "offset": offset, "n_stored": n_dense,
             "length": length, "s_count": s_count, "row_map": row_map,
             "majority": majority, "totals": totals.astype(np.int64),
-            "sym_ids": sym_ids, "pos_ids": pos_ids,
-            "sparse_map": np.full((s_count, length), -1, dtype=np.int64),
-            "sparse_base": 0,
-            "sparse_sym_ids": sym_ids[:0], "sparse_pos_ids": pos_ids[:0],
+            "sym_ids": sym_ids[dense], "pos_ids": pos_ids[dense],
+            "sparse_map": sparse_map, "sparse_base": n_sparse,
+            "sparse_sym_ids": sym_ids[sparse],
+            "sparse_pos_ids": pos_ids[sparse],
         }
-        offset += len(sym_ids)
+        offset += n_dense
+        n_sparse += n_seg_sparse
     n_rows = max(offset, 1)
 
     # filled one partition (one column band of the bank) at a time, so the
     # host never holds more than [R, W] of it
-    bank = torch.zeros((n_rows, n_partitions * n_words), dtype=torch.int32,
-                       device=device)
+    bank = torch.zeros((n_rows, flat_words), dtype=torch.int32, device=device)
     full = np.zeros((n_partitions, n_words), dtype=np.uint32)
     for pi, partition in enumerate(partitions):
         w = bitset.words_for(partition.sequence_count)
@@ -161,26 +257,51 @@ def build_state(database, device: torch.device) -> DenseState:
                     int(meta["sym_ids"][j]), int(meta["pos_ids"][j]))
         bank[:, pi * n_words:(pi + 1) * n_words] = to_device(band, device)
         del band
-    return DenseState(segment_meta, bank, to_device(full.reshape(-1), device))
+    state = BankState(segment_meta, bank, to_device(full.reshape(-1), device))
+    if n_sparse:
+        idx, words, starts_pp, lens_pp = _sparse_stream(
+            partitions, segments, segment_meta, n_sparse, n_words)
+        state.sparse_idx = to_device(idx, device)
+        state.sparse_words = to_device(words, device)
+        state.sparse_starts_pp, state.sparse_lengths_pp = starts_pp, lens_pp
+    return state
 
 
-def state_from_reference(bank, full_masks, segment_meta,
-                         device: torch.device) -> DenseState:
+def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
+                         sparse_stream=None, sparse_starts_pp=None,
+                         sparse_lengths_pp=None) -> BankState:
     """The port's state from a JAX DeviceEngine's arrays (numpy or anything
     np.asarray takes): its bank (2-D or the 3-D [R, PW/128, 128] form),
-    full_masks and segment_meta. Only dense-tier engines convert."""
-    if any(len(meta["sparse_sym_ids"]) for meta in segment_meta.values()):
-        raise NotImplementedError("two-tier bank not ported yet")
+    full_masks and segment_meta, and for a two-tier engine its combined
+    sparse stream (``sparse_stream[0]``), sparse_starts_pp and
+    sparse_lengths_pp. The combined stream's block interleave (per 1,024
+    entries: 8 rows of 128 indices, then 8 rows of 128 words) is undone here
+    and the stream trimmed to its live entries."""
     bank = np.asarray(bank)
-    return DenseState(
+    state = BankState(
         segment_meta,
         to_device(bank.reshape(bank.shape[0], -1), device),
         to_device(np.asarray(full_masks).reshape(-1), device))
+    if not any(len(meta["sparse_sym_ids"]) for meta in segment_meta.values()):
+        return state
+    if sparse_stream is None or sparse_starts_pp is None \
+            or sparse_lengths_pp is None:
+        raise ValueError("a two-tier engine converts with its sparse stream "
+                         "and bounds")
+    starts = np.asarray(sparse_starts_pp, dtype=np.int64)
+    lens = np.asarray(sparse_lengths_pp, dtype=np.int64)
+    n_live = int(lens.sum())
+    groups = np.asarray(sparse_stream, dtype=np.uint32).reshape(-1, 2, 8, 128)
+    state.sparse_idx = to_device(groups[:, 0].reshape(-1)[:n_live], device)
+    state.sparse_words = to_device(groups[:, 1].reshape(-1)[:n_live], device)
+    state.sparse_starts_pp, state.sparse_lengths_pp = starts, lens
+    return state
 
 
 class DeviceEngine:
     def __init__(self, database, device: torch.device,
-                 state: DenseState | None = None):
+                 state: BankState | None = None,
+                 sparse_min_words: int | None = None):
         self.db = database
         self.device = torch.device(device)
         partitions = database.partitions
@@ -189,7 +310,7 @@ class DeviceEngine:
         self.n_partitions = len(partitions)
         self.part_rows = [p.sequence_count for p in partitions]
         if state is None:
-            state = build_state(database, self.device)
+            state = build_state(database, self.device, sparse_min_words)
         self.segment_meta = state.segment_meta
         self.bank = state.bank
         self.full_masks = state.full_masks
@@ -198,20 +319,72 @@ class DeviceEngine:
         self.n_words = self.n_flat_words // self.n_partitions
         self._full_host = to_host(self.full_masks).reshape(
             self.n_partitions, self.n_words)  # host_count interprets on it
+        self.sparse_idx = state.sparse_idx
+        self.sparse_words = state.sparse_words
+        self.sparse_starts_pp = state.sparse_starts_pp
+        self.sparse_lengths_pp = state.sparse_lengths_pp
+        self.n_sparse = sum(len(meta["sparse_sym_ids"])
+                            for meta in self.segment_meta.values())
+        self._stream = (torch.cuda.default_stream(self.device)
+                        if self.device.type == "cuda" else None)
+
         # ingest-time row cardinalities (the reference's stored-cardinality
         # fast path): single-leaf counts need no device work at all
         self._dense_row_counts = np.zeros(self.n_rows, dtype=np.int64)
+        self._sparse_row_counts = np.zeros(max(self.n_sparse, 1),
+                                           dtype=np.int64)
         for meta in self.segment_meta.values():
             if meta["n_stored"]:
                 self._dense_row_counts[
                     meta["offset"]: meta["offset"] + meta["n_stored"]
                 ] = meta["totals"][meta["sym_ids"], meta["pos_ids"]]
-        # the dense tier has no sparse leaves: lowering never emits B_SPARSE,
-        # and the VM's sparse operand is one zero row
-        self.sparse_batch_cap = 0
+            n_seg_sparse = len(meta["sparse_sym_ids"])
+            if n_seg_sparse:
+                self._sparse_row_counts[
+                    meta["sparse_base"]: meta["sparse_base"] + n_seg_sparse
+                ] = meta["totals"][meta["sparse_sym_ids"],
+                                   meta["sparse_pos_ids"]]
+        # the Mutations reduction's bounds, resident: (starts, lens)
+        self._sparse_bounds = (self._bounds_on_device(self._bounds(
+            np.arange(self.n_sparse))) if self.n_sparse else None)
+        self._sparse_counts_memo: tuple | None = None
+
+        # the reference's caps (device_engine.py:424-431, 560-564): the
+        # poolless leaf cap keeps the densified [K, PW] block under
+        # _SPARSE_K_BYTE_CAP; pool updates chunk at the same bound's cap;
+        # a batch splits at the slot count (all of a launch's leaves must be
+        # resident at once) or, without the pool, at the poolless cap
+        smem_cap = (_smem_k_cap(self.n_partitions) if self.n_sparse
+                    else _SPARSE_K_BUCKETS[-1])
+        self.max_sparse_k = min(
+            max((b for b in _SPARSE_K_BUCKETS
+                 if b * self.n_flat_words * 4 <= _SPARSE_K_BYTE_CAP),
+                default=_SPARSE_K_BUCKETS[1]),
+            smem_cap)
+        self._pool_update_k_cap = smem_cap
+        # the reference's shape ladder pins compiled densify shapes; a CUDA
+        # kernel's cost follows the live entries, so there is none
         self.sparse_shape_ladder: list = []
-        self.pool_slots = 0
-        self._sparse_rows = torch.zeros((1, self.n_flat_words),
+
+        # HOT-LEAF POOL: [C + 1, PW] rows of densified sparse leaves (row C
+        # is scratch), SLRU-managed by leaf id: leaves hit on a second
+        # distinct call move to _protected (at most 80% of the slots), and
+        # eviction takes unprotected LRU leaves first, so a one-pass scan
+        # cannot flush the repeatedly hit working set
+        self.pool_slots = self._pool_slot_count()
+        self.sparse_batch_cap = self.pool_slots or self.max_sparse_k
+        self.leaf_pool: torch.Tensor | None = None  # allocated on first use
+        self._leaf_slot: OrderedDict[int, int] = OrderedDict()  # LRU
+        self._protected: OrderedDict[int, None] = OrderedDict()
+        self._protected_cap = max(1, (self.pool_slots * 4) // 5)
+        self._free_slots: list[int] = []
+        self._pool_lock = threading.RLock()
+        # observability: cumulative hit, miss and update traffic
+        self.pool_hits = 0
+        self.pool_misses = 0
+        self.pool_update_dispatches = 0
+
+        self._sparse_zero = torch.zeros((1, self.n_flat_words),
                                         dtype=torch.int32, device=self.device)
         self._zero_dyn_cache: dict[int, torch.Tensor] = {}
         self._filters_memo: tuple | None = None
@@ -219,6 +392,190 @@ class DeviceEngine:
         self._batcher: _MicroBatcher | None = None
         self._program_memo: OrderedDict[str, tuple] = OrderedDict()
         self._program_memo_lock = threading.Lock()
+
+    def _on_stream(self):
+        """The engine's stream as the current one (no-op off CUDA)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    # -- hot-leaf pool ------------------------------------------------------
+
+    def _pool_slot_count(self) -> int:
+        """The reference's pool sizing (device_engine.py:483-531), without
+        its bank3 condition: SILO_LEAF_POOL_GB, else what the dense-bank
+        budget leaves beside the bank and the stream, less 2 GiB of
+        headroom, at most 6 GiB and none below 1 GiB; one slot per PW words,
+        at most 8,192 and the leaf count, none below 64 or with
+        SILO_LEAF_POOL=0."""
+        env_pool_gb = os.environ.get("SILO_LEAF_POOL_GB")
+        if env_pool_gb is not None:
+            pool_budget = float(env_pool_gb) * 2**30
+        else:
+            budget_bytes = int(float(os.environ.get(
+                "SILO_DENSE_BANK_BUDGET_GB", SPARSE_BANK_BUDGET_GB)) * 2**30)
+            bank_bytes = 4 * self.n_rows * self.n_flat_words
+            stream_bytes = (8 * self.sparse_idx.shape[0]
+                            if self.sparse_idx is not None else 0)
+            free = budget_bytes - bank_bytes - stream_bytes
+            pool_budget = min(6 * 2**30, free - 2 * 2**30)
+            if pool_budget < 1 * 2**30:
+                pool_budget = 0
+        want_slots = int(pool_budget // (4 * self.n_flat_words))
+        if (self.n_sparse > 0 and os.environ.get("SILO_LEAF_POOL", "1") != "0"
+                and want_slots >= 64):
+            return min(want_slots, self.n_sparse, 8192)
+        return 0
+
+    def _alloc_pool(self) -> torch.Tensor:
+        """The zeroed [C + 1, PW] pool."""
+        return torch.zeros((self.pool_slots + 1, self.n_flat_words),
+                           dtype=torch.int32, device=self.device)
+
+    def _plan_residency(self, leaf_ids: list[int]):
+        """Slot-assign every leaf (SLRU bookkeeping) and return (leaf id ->
+        slot, update chunks): each chunk is an (ids, slots) pair of at most
+        _pool_update_k_cap misses to densify. The caller holds _pool_lock
+        and launches the updates and the VM on the engine's stream, so an
+        evicted slot is overwritten only after the launches that read it."""
+        C = self.pool_slots
+        if self.leaf_pool is None:
+            self.leaf_pool = self._alloc_pool()
+            self._free_slots = list(range(C))
+        slot_map: dict[int, int] = {}
+        misses: list[int] = []
+        for leaf in leaf_ids:
+            slot = self._leaf_slot.get(leaf)
+            if slot is not None:
+                self._leaf_slot.move_to_end(leaf)
+                # second distinct touch -> protected segment (SLRU)
+                self._protected[leaf] = None
+                self._protected.move_to_end(leaf)
+                if len(self._protected) > self._protected_cap:
+                    self._protected.popitem(last=False)  # demote, stays resident
+                slot_map[leaf] = slot
+            else:
+                misses.append(leaf)
+        self.pool_hits += len(slot_map)
+        self.pool_misses += len(misses)
+        if not misses:
+            return slot_map, []
+        needed = set(leaf_ids)
+        n_evict = len(misses) - len(self._free_slots)
+        victims: list[int] = []
+        if n_evict > 0:
+            # one pass in global LRU order: probationary victims first,
+            # protected LRU only when probation can't cover the misses
+            protected_spare: list[int] = []
+            for old in self._leaf_slot:
+                if old in needed:
+                    continue
+                if old in self._protected:
+                    protected_spare.append(old)
+                else:
+                    victims.append(old)
+                    if len(victims) == n_evict:
+                        break
+            if len(victims) < n_evict:
+                victims.extend(protected_spare[: n_evict - len(victims)])
+            if len(victims) < n_evict:
+                raise ProgramTooLarge(
+                    f"leaf pool ({C} slots) smaller than one batch")
+        victims.reverse()  # pop() below takes probationary-LRU first
+        for leaf in misses:
+            if self._free_slots:
+                slot = self._free_slots.pop()
+            else:
+                old = victims.pop()
+                slot = self._leaf_slot.pop(old)
+                self._protected.pop(old, None)
+            self._leaf_slot[leaf] = slot
+            slot_map[leaf] = slot
+        step = self._pool_update_k_cap
+        chunks = [(misses[i: i + step],
+                   [slot_map[leaf] for leaf in misses[i: i + step]])
+                  for i in range(0, len(misses), step)]
+        return slot_map, chunks
+
+    def _drop_pool(self):
+        """A failed update must not leave the cache claiming leaves whose
+        slots were never written (every later hit would read wrong rows):
+        the pool is a cache, so drop it wholesale and let the next launch
+        reallocate it."""
+        self.leaf_pool = None
+        self._leaf_slot.clear()
+        self._protected.clear()
+        self._free_slots = []
+
+    def _eager_update_chunks(self, chunks) -> None:
+        """Densify each update chunk into its pool slots, one launch per
+        chunk. Caller holds _pool_lock and drops the pool on failure."""
+        for ids, slots in chunks:
+            starts, lens = self._bounds_on_device(self._bounds(ids))
+            kernels.densify_rows_into_pool(
+                self.leaf_pool, self.sparse_idx, self.sparse_words, starts,
+                lens, slots)
+            self.pool_update_dispatches += 1
+
+    def warm_pool_updates(self):
+        """Allocate the pool before a snapshot goes live (the watcher calls
+        this): the reference also compiled its update executables here, and
+        the CUDA kernels need no compiling."""
+        if not self.pool_slots:
+            return
+        with self._pool_lock, self._on_stream():
+            if self.leaf_pool is None:
+                self.leaf_pool = self._alloc_pool()
+                self._free_slots = list(range(self.pool_slots))
+
+    def _rewrite_sparse_operands(self, code: np.ndarray,
+                                 leaf_ids: list[int],
+                                 slot_map: dict[int, int]) -> np.ndarray:
+        """B_SPARSE operands index the program's leaf list; the pooled VM
+        reads pool slots instead."""
+        mask = (wire_opcode(code[1]) == ALU) & (wire_bsrc(code[1]) == B_SPARSE)
+        if not mask.any():
+            return code
+        table = np.asarray([slot_map[leaf] for leaf in leaf_ids],
+                           dtype=code.dtype)
+        code = code.copy()
+        code[0, mask] = table[code[0, mask]]
+        return code
+
+    # -- sparse leaves --------------------------------------------------------
+
+    def _bounds(self, leaf_ids) -> np.ndarray:
+        """int64 [2, K, P]: the (start, len) of each leaf's stream segment in
+        each partition."""
+        ids = np.asarray(leaf_ids, dtype=np.int64)
+        return np.stack([self.sparse_starts_pp[ids],
+                         self.sparse_lengths_pp[ids]])
+
+    def _bounds_on_device(self, bounds: np.ndarray):
+        """(starts, lens) [K, P] int32 on the device, in one upload."""
+        both = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
+        return both[0], both[1]
+
+    def _assemble_sparse(self, sparse_leaves: list[int]) -> np.ndarray:
+        """The bounds of a poolless launch's leaves, with the reference's
+        two checks (device_engine.py:897-905): the live entries fit the
+        entry limit, and every stream offset fits int32."""
+        bounds = self._bounds(sparse_leaves)
+        starts, lens = bounds
+        e_needed = int(lens.sum())
+        if e_needed > _SPARSE_E_MAX:
+            raise ProgramTooLarge(f"sparse entries {e_needed}")
+        if len(sparse_leaves) and (int(starts.max() + lens.max())
+                                   > np.iinfo(np.int32).max):
+            raise ProgramTooLarge("sparse stream offsets exceed int32")
+        return bounds
+
+    def _densified(self, sparse_leaves: list[int]) -> torch.Tensor:
+        """[K, PW] densified rows of the leaves, in their order."""
+        starts, lens = self._bounds_on_device(
+            self._assemble_sparse(sparse_leaves))
+        return kernels.densify_rows(self.sparse_idx, self.sparse_words,
+                                    starts, lens, self.n_flat_words)
 
     # -- lowering -----------------------------------------------------------
 
@@ -262,25 +619,38 @@ class DeviceEngine:
                                program.regspec)
         n_dyn = next(b for b in _DYN_BUCKETS if b >= len(program.dyn_rows))
         n_regs = next(b for b in _REG_BUCKETS if b >= program.max_regs)
-        return VmArgs(code, _round_instr(n), program.dyn_rows, n_dyn, n_regs)
+        return VmArgs(code, _round_instr(n), program.dyn_rows, n_dyn, n_regs,
+                      list(program.sparse_leaves))
 
     def batch_args(self, lowered: list[_Program], min_bucket: int = 0) -> VmArgs:
         """The programs concatenated into one, each followed by an
         EMIT_COUNT of reg[0] into its query's slot; dyn operands rebased onto
-        the merged dyn rows. Packed once: per-program packing costs numpy
-        small-array overhead per query."""
+        the merged dyn rows, and sparse leaves deduplicated across the batch
+        (queries in a batch often share leaves). Packed once: per-program
+        packing costs numpy small-array overhead per query."""
         flat_ops: list[int] = []
         flat_opers: list[int] = []
         flat_spec: list[int] = []
         dyn_rows: list = []
+        sparse_leaves: list[int] = []
+        sparse_slots: dict[int, int] = {}  # global sparse row -> merged slot
         for qi, program in enumerate(lowered):
             dyn_base = len(dyn_rows)
             operands = list(program.operands)
-            if dyn_base:
+            if dyn_base or program.sparse_leaves:
                 for i, opcode in enumerate(program.opcodes):
-                    if (opcode == ALU
-                            and (program.regspec[i] >> 28) & 0xF == B_DYN):
+                    if opcode != ALU:
+                        continue
+                    bsrc = (program.regspec[i] >> 28) & 0xF
+                    if bsrc == B_DYN:
                         operands[i] += dyn_base
+                    elif bsrc == B_SPARSE:
+                        row_id = program.sparse_leaves[operands[i]]
+                        slot = sparse_slots.get(row_id)
+                        if slot is None:
+                            slot = sparse_slots[row_id] = len(sparse_leaves)
+                            sparse_leaves.append(row_id)
+                        operands[i] = slot
             dyn_rows.extend(program.dyn_rows)
             flat_ops.extend(program.opcodes)
             flat_opers.extend(operands)
@@ -298,7 +668,7 @@ class DeviceEngine:
         n_regs = next(b for b in _REG_BUCKETS
                       if b >= max(p.max_regs for p in lowered))
         return VmArgs(code, _round_instr(len(flat_ops)), dyn_rows, n_dyn,
-                      n_regs)
+                      n_regs, sparse_leaves)
 
     def _dyn_tensor(self, dyn_rows: list, n_dyn: int) -> torch.Tensor:
         """[n_dyn, PW] dyn rows on the device (a cached zero block when the
@@ -317,16 +687,41 @@ class DeviceEngine:
                 dyn[di, pi] = row
         return to_device(dyn.reshape(n_dyn, self.n_flat_words), self.device)
 
-    def kernel_inputs(self, args: VmArgs) -> tuple:
+    def kernel_inputs(self, args: VmArgs,
+                      sparse_rows: torch.Tensor | None = None) -> tuple:
         """The positional arguments of kernels.vm_run for one launch: the
-        code block's first n_instr columns and the dyn rows uploaded."""
+        code block's first n_instr columns, the dyn rows uploaded, and the
+        rows B_SPARSE operands read (one zero row for programs without
+        sparse leaves)."""
         code = torch.from_numpy(np.ascontiguousarray(args.code[:, :args.n_instr]))
         return (code.to(self.device), args.n_instr, self.bank,
                 self._dyn_tensor(args.dyn_rows, args.n_dyn),
-                self._sparse_rows, self.full_masks, args.n_regs)
+                self._sparse_zero if sparse_rows is None else sparse_rows,
+                self.full_masks, args.n_regs)
 
-    def _run(self, args: VmArgs) -> tuple[torch.Tensor, torch.Tensor]:
-        return kernels.vm_run(*self.kernel_inputs(args))
+    def _run(self, args: VmArgs,
+             use_pool: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """One VM launch on the engine's stream. With sparse leaves, the VM
+        reads the hot-leaf pool (misses densified into their slots first,
+        all under _pool_lock) or, without the pool or with `use_pool` off,
+        a [K, PW] block densified for this launch."""
+        with self._on_stream():
+            if not args.sparse_leaves:
+                return kernels.vm_run(*self.kernel_inputs(args))
+            if self.pool_slots and use_pool:
+                with self._pool_lock:
+                    slot_map, chunks = self._plan_residency(args.sparse_leaves)
+                    code = self._rewrite_sparse_operands(
+                        args.code, args.sparse_leaves, slot_map)
+                    try:
+                        self._eager_update_chunks(chunks)
+                        return kernels.vm_run(*self.kernel_inputs(
+                            args._replace(code=code), self.leaf_pool))
+                    except Exception:
+                        self._drop_pool()
+                        raise
+            rows = self._densified(args.sparse_leaves)
+            return kernels.vm_run(*self.kernel_inputs(args, rows))
 
     # -- filters ----------------------------------------------------------------
 
@@ -380,7 +775,8 @@ class DeviceEngine:
         if program is None:
             program = self.lower(filter_expr)[0]
         words, _counts = self._run(self._prepare_program(program))
-        return popcount_words(words)
+        with self._on_stream():
+            return popcount_words(words)
 
     def count(self, filter_expr) -> int:
         """One count: host-answerable programs need no device work."""
@@ -390,9 +786,11 @@ class DeviceEngine:
             return host
         return int(self.count_async(filter_expr, program=program))
 
-    def count_batch(self, filter_exprs: list, min_bucket: int = 0) -> list[int]:
+    def count_batch(self, filter_exprs: list, min_bucket: int = 0,
+                    min_sparse_k: int = 0, min_sparse_e: int = 0) -> list[int]:
         """Many counts in one launch (the programs concatenate, each ending
-        with EMIT_COUNT)."""
+        with EMIT_COUNT). The sparse floors pin compiled shapes in the
+        reference; the port accepts and ignores them."""
         return self.count_programs([self.lower(f)[0] for f in filter_exprs],
                                    min_bucket)
 
@@ -400,9 +798,9 @@ class DeviceEngine:
                    allow_interpret: bool = True) -> int | None:
         """A count answerable with NO device work, or None: (a) single
         static-row loads (the row's ingest-time popcount), (b) programs
-        touching no bank rows, interpreted over numpy words (skipped when
-        `allow_interpret` is False: inside a wide batch the launch is shared
-        and serial host numpy is the worse trade)."""
+        touching no bank or sparse rows, interpreted over numpy words
+        (skipped when `allow_interpret` is False: inside a wide batch the
+        launch is shared and serial host numpy is the worse trade)."""
         n = len(program.opcodes)
         if n == 1 and program.opcodes[0] == ALU:
             spec = program.regspec[0]
@@ -411,6 +809,9 @@ class DeviceEngine:
                 operand = program.operands[0]
                 if bsrc == B_BANK:
                     return int(self._dense_row_counts[operand])
+                if bsrc == B_SPARSE:
+                    return int(self._sparse_row_counts[
+                        program.sparse_leaves[operand]])
                 if bsrc == B_FULL:
                     return sum(self.part_rows)
                 if bsrc == B_ZERO:
@@ -456,12 +857,17 @@ class DeviceEngine:
                 regs[dst] = a & (b ^ full)
         return int(bitset.popcount(regs[0].reshape(-1)))
 
+    def sparse_floors(self, programs) -> tuple[int, int]:
+        """The reference's shape-ladder floors: the port pins no shapes."""
+        return (0, 0)
+
     def count_split(self, lowered: list[_Program], min_bucket: int = 0,
+                    min_sparse_k: int = 0, min_sparse_e: int = 0,
                     max_bucket: int | None = None):
         """Phase 1 of a batched count (non-blocking): answer host-computable
         programs and enqueue the device launches. Returns
         (results-with-None-at-device-slots, device_idx, dispatches); finish
-        with count_finish."""
+        with count_finish. The sparse floors are accepted and ignored."""
         results: list[int | None] = [None] * len(lowered)
         device_idx: list[int] = []
         device_programs: list[_Program] = []
@@ -489,6 +895,7 @@ class DeviceEngine:
         return results
 
     def count_programs(self, lowered: list[_Program], min_bucket: int = 0,
+                       min_sparse_k: int = 0, min_sparse_e: int = 0,
                        max_bucket: int | None = None) -> list[int]:
         """count_batch over already-lowered programs (the micro-batcher
         lowers per query so one bad query can't poison a whole batch)."""
@@ -496,37 +903,67 @@ class DeviceEngine:
             lowered, min_bucket, max_bucket=max_bucket))
 
     def count_dispatches(self, lowered: list[_Program], min_bucket: int = 0,
+                         min_sparse_k: int = 0, min_sparse_e: int = 0,
                          max_bucket: int | None = None,
+                         force_poolless: bool = False,
                          ) -> list[tuple[torch.Tensor, int]]:
         """Non-blocking: (device counts [4096], n_queries) per launch; callers
         slice each [:n_queries]. A batch splits where it exceeds the EMIT
-        slots, the instruction cap (`max_bucket`, else the largest bucket) or
-        the dyn-row cap."""
+        slots, the instruction cap (`max_bucket`, else the largest bucket),
+        the dyn-row cap or the sparse-leaf cap (the pool's slot count; with
+        `force_poolless`, the poolless densify cap)."""
         q = len(lowered)
         if q > MAX_BATCH_QUERIES:
             out = []
             for i in range(0, q, MAX_BATCH_QUERIES):
                 out.extend(self.count_dispatches(
                     lowered[i: i + MAX_BATCH_QUERIES], min_bucket,
-                    max_bucket=max_bucket))
+                    max_bucket=max_bucket, force_poolless=force_poolless))
             return out
+        # Cold-sweep pool bypass (device_engine.py:1270-1292): when a batch's
+        # leaf set is mostly misses and the poolless densify would take fewer
+        # launches than pool updates + VM, ride it; the resident hot set
+        # survives the sweep
+        if self.pool_slots and not force_poolless:
+            distinct = {r for p in lowered for r in p.sparse_leaves}
+            if len(distinct) > self.max_sparse_k:
+                with self._pool_lock:
+                    misses = sum(1 for leaf in distinct
+                                 if leaf not in self._leaf_slot)
+                pooled_n = -(-misses // max(self._pool_update_k_cap, 1)) + 1
+                poolless_n = -(-len(distinct) // max(self.max_sparse_k, 1))
+                if (2 * misses > len(distinct) and misses > 0
+                        and poolless_n < pooled_n):
+                    return self.count_dispatches(
+                        lowered, min_bucket, max_bucket=max_bucket,
+                        force_poolless=True)
         len_cap = max_bucket or _BATCH_LEN_BUCKETS[-1]
+        sparse_cap = (self.max_sparse_k if force_poolless
+                      else self.sparse_batch_cap)
         total = sum(len(p.opcodes) + 1 for p in lowered)
         total_dyn = sum(len(p.dyn_rows) for p in lowered)
-        if q > 1 and (total > len_cap or total_dyn > _DYN_BUCKETS[-1]):
+        total_sparse = len({r for p in lowered for r in p.sparse_leaves})
+        if q > 1 and (total > len_cap or total_dyn > _DYN_BUCKETS[-1]
+                      or total_sparse > sparse_cap):
             acc_len = acc_dyn = 0
+            acc_sparse: set[int] = set()
             split = q
             for i, p in enumerate(lowered):
                 acc_len += len(p.opcodes) + 1
                 acc_dyn += len(p.dyn_rows)
-                if i and (acc_len > len_cap or acc_dyn > _DYN_BUCKETS[-1]):
+                acc_sparse.update(p.sparse_leaves)
+                if i and (acc_len > len_cap or acc_dyn > _DYN_BUCKETS[-1]
+                          or len(acc_sparse) > sparse_cap):
                     split = i
                     break
             return (self.count_dispatches(lowered[:split], min_bucket,
-                                          max_bucket=max_bucket)
+                                          max_bucket=max_bucket,
+                                          force_poolless=force_poolless)
                     + self.count_dispatches(lowered[split:], min_bucket,
-                                            max_bucket=max_bucket))
-        _words, counts = self._run(self.batch_args(lowered, min_bucket))
+                                            max_bucket=max_bucket,
+                                            force_poolless=force_poolless))
+        _words, counts = self._run(self.batch_args(lowered, min_bucket),
+                                   use_pool=not force_poolless)
         return [(counts, q)]
 
     def count_coalesced(self, filter_expr, key: str | None = None) -> int:
@@ -558,16 +995,35 @@ class DeviceEngine:
         self._filters_memo = (key, list(filter_words), filters)
         return filters
 
+    def _sparse_counts(self, filter_words) -> np.ndarray:
+        """int64[n_sparse]: popcount(row & filter) for every sparse-tier row
+        (all segments) in ONE launch of the sparse-counts kernel over the
+        stream (memoized per filter, as the reference does)."""
+        key = (id(filter_words) if isinstance(filter_words, DeviceFilter)
+               else tuple(id(w) for w in filter_words))
+        memo = self._sparse_counts_memo
+        if memo is not None and memo[0] == key:
+            return memo[2]
+        with self._on_stream():
+            counts = kernels.sparse_counts(
+                self.sparse_idx, self.sparse_words,
+                self._filters_for(filter_words), self._sparse_bounds[0],
+                self._sparse_bounds[1])
+            out = counts.cpu().numpy().astype(np.int64)
+        self._sparse_counts_memo = (key, filter_words, out)
+        return out
+
     def mutation_counts(self, kind: str, name: str, filter_words):
         """counts[S, L] for one segment (see mutation_counts_many)."""
         return self.mutation_counts_many(kind, [name], filter_words)[name]
 
     def mutation_counts_many(self, kind: str, names: list[str], filter_words):
         """{name: counts[S, L]}: per (symbol, position) popcount of plane &
-        filter, summed over partitions. Stored rows reduce on the device;
-        majority rows reconstruct as |filter| - sum(stored counts at pos)
-        (exact under the one-symbol-per-position invariant). Every segment's
-        launch is issued before the first readback."""
+        filter, summed over partitions. Dense rows reduce with the Mutations
+        kernel, sparse rows with one sparse-counts launch over the stream
+        for all segments; majority rows reconstruct as |filter| - sum(stored
+        counts at pos) (exact under the one-symbol-per-position invariant).
+        Every segment's launch is issued before the first readback."""
         if isinstance(filter_words, DeviceFilter):
             filter_total = filter_words.popcount()
         else:
@@ -575,32 +1031,45 @@ class DeviceEngine:
         full = filter_total == sum(self.part_rows)
         results: dict[str, np.ndarray] = {}
         pending = []
-        for name in names:
-            meta = self.segment_meta[(kind, name)]
-            # full/empty filters answer from the ingest-time count matrix
-            if full:
-                results[name] = meta["totals"].copy()
-                continue
-            if filter_total == 0:
-                results[name] = np.zeros(
-                    (meta["s_count"], meta["length"]), dtype=np.int64)
-                continue
-            dev = None
-            if meta["n_stored"]:
-                dev = kernels.mutation_counts(
-                    self.bank, self._filters_for(filter_words),
-                    meta["offset"], meta["n_stored"])
-            pending.append((name, meta, dev))
-        for name, meta, dev in pending:
-            length, s_count = meta["length"], meta["s_count"]
-            counts = np.zeros((s_count, length), dtype=np.int64)
-            per_pos = np.zeros(length, dtype=np.int64)
-            if dev is not None:
-                stored = dev.cpu().numpy().astype(np.int64)
-                counts[meta["sym_ids"], meta["pos_ids"]] = stored
-                np.add.at(per_pos, meta["pos_ids"], stored)
-            counts[meta["majority"], np.arange(length)] = filter_total - per_pos
-            results[name] = counts
+        need_sparse = False
+        with self._on_stream():
+            for name in names:
+                meta = self.segment_meta[(kind, name)]
+                # full/empty filters answer from the ingest-time count matrix
+                if full:
+                    results[name] = meta["totals"].copy()
+                    continue
+                if filter_total == 0:
+                    results[name] = np.zeros(
+                        (meta["s_count"], meta["length"]), dtype=np.int64)
+                    continue
+                dev = None
+                if meta["n_stored"]:
+                    dev = kernels.mutation_counts(
+                        self.bank, self._filters_for(filter_words),
+                        meta["offset"], meta["n_stored"])
+                need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
+                pending.append((name, meta, dev))
+            sparse_all = (self._sparse_counts(filter_words)
+                          if need_sparse and pending else None)
+            for name, meta, dev in pending:
+                length, s_count = meta["length"], meta["s_count"]
+                counts = np.zeros((s_count, length), dtype=np.int64)
+                per_pos = np.zeros(length, dtype=np.int64)
+                if dev is not None:
+                    stored = dev.cpu().numpy().astype(np.int64)
+                    counts[meta["sym_ids"], meta["pos_ids"]] = stored
+                    np.add.at(per_pos, meta["pos_ids"], stored)
+                n_seg_sparse = len(meta["sparse_sym_ids"])
+                if n_seg_sparse:
+                    seg_sparse = sparse_all[
+                        meta["sparse_base"]: meta["sparse_base"] + n_seg_sparse]
+                    counts[meta["sparse_sym_ids"], meta["sparse_pos_ids"]] = (
+                        seg_sparse)
+                    np.add.at(per_pos, meta["sparse_pos_ids"], seg_sparse)
+                counts[meta["majority"], np.arange(length)] = (
+                    filter_total - per_pos)
+                results[name] = counts
         return results
 
 
@@ -615,7 +1084,8 @@ class DeviceFilter:
 
     def popcount(self) -> int:
         if self._popcount is None:
-            self._popcount = int(popcount_words(self.words))
+            with self.engine._on_stream():
+                self._popcount = int(popcount_words(self.words))
         return self._popcount
 
 

@@ -1,17 +1,28 @@
 """The port's hand-written CUDA kernels: build, bind, wrap, count.
 
-Two kernels carry the count and Mutations path, each in ``csrc/``:
+Five kernels carry the count and Mutations paths over both tiers of the
+bank, each in ``csrc/`` (TPU kernels in
+``lapis_silo_tpu/ops/pallas_kernels.py``):
 
-- ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing
-  ``lapis_silo_tpu/ops/pallas_kernels.py:526`` ``vm_run``;
+- ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing ``:526``
+  ``vm_run``;
 - ``mutation_counts`` (``csrc/mutation_counts.cu``): popcount(row & filter)
-  per bank row, replacing ``pallas_kernels.py:150``
-  ``mutation_counts_banked`` (naive form).
+  per dense bank row, replacing ``:150`` ``mutation_counts_banked`` (naive
+  form);
+- ``sparse_counts`` (``csrc/sparse_counts.cu``): the same per sparse-tier
+  leaf over the CSR stream, replacing ``:438`` ``sparse_filter_popcount``
+  and the boundary sums its callers take;
+- ``densify_rows`` (``csrc/densify.cu``): sparse leaves into dense rows
+  ``[K, PW]``, replacing ``:850`` ``densify_rows``;
+- ``densify_rows_into_pool`` (``csrc/densify.cu``): the same, written in
+  place into rows of the hot-leaf pool, replacing ``:1252``
+  ``densify_rows_into_pool``.
 
-At first use the sources are compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``build/torch_kernels/`` of
-the checkout, named by a hash of the sources and flags, and loaded with
-``ctypes``. A build or load that fails raises ``RuntimeError``.
+At first use each source is compiled with its own ``nvcc`` (all started
+together) for ``sm_90a`` and the objects are linked into one shared library
+with a plain C interface, under ``build/torch_kernels/`` of the checkout,
+named by a hash of the sources and flags, and loaded with ``ctypes``. A
+build or load that fails raises ``RuntimeError``.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on the
 current stream and adds one to its kernel's ``launches``. For tensors on the
@@ -41,8 +52,10 @@ from .words import popcount
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 class KernelCounts:
@@ -67,7 +80,13 @@ class KernelCounts:
 VM_RUN = KernelCounts("vm_run", "lapis_silo_torch/csrc/vm_run.cu")
 MUTATION_COUNTS = KernelCounts("mutation_counts",
                                "lapis_silo_torch/csrc/mutation_counts.cu")
-KERNELS = (VM_RUN, MUTATION_COUNTS)
+SPARSE_COUNTS = KernelCounts("sparse_counts",
+                             "lapis_silo_torch/csrc/sparse_counts.cu")
+DENSIFY_ROWS = KernelCounts("densify_rows", "lapis_silo_torch/csrc/densify.cu")
+DENSIFY_INTO_POOL = KernelCounts("densify_rows_into_pool",
+                                 "lapis_silo_torch/csrc/densify.cu")
+KERNELS = (VM_RUN, MUTATION_COUNTS, SPARSE_COUNTS, DENSIFY_ROWS,
+           DENSIFY_INTO_POOL)
 
 
 def reset_counts() -> None:
@@ -86,6 +105,11 @@ _SIGNATURES = {
     "lapis_vm_run": [_P, _P, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _I64,
                      _I32, _P, _P, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
+    "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
+                            _P],
+    "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P],
+    "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
+                                     _P, _P, _P],
 }
 
 
@@ -103,31 +127,57 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the kernels' shared library for the current sources lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for source in sorted(CSRC_DIR.glob("*.cu")):
         digest.update(source.name.encode())
         digest.update(source.read_bytes())
     return BUILD_DIR / f"liblapis_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their stderr, or RuntimeError if any
+    fails. Every process started here has ended when this returns."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        outs = [proc.communicate(timeout=900) for proc in procs]
+    except (OSError, subprocess.TimeoutExpired) as ex:
+        raise RuntimeError(f"kernel build failed to run: {ex}") from ex
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, (_out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return [err for _out, err in outs]
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    The compiler's resource report (-Xptxas -v) lands beside it as .log."""
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source, all at once, then one link. The compiler's resource
+    report (-Xptxas -v) lands beside the library as .log."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    tag = f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{source.stem}.o" for source in sources]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
     try:
-        done = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    except (OSError, subprocess.TimeoutExpired) as ex:
-        raise RuntimeError(f"kernel build failed to run: {ex}") from ex
-    if done.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({done.returncode}):\n"
-                           f"{done.stderr}")
-    target.with_suffix(".log").write_text(done.stderr)
+        reports = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+                            for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    target.with_suffix(".log").write_text("".join(reports))
     os.replace(tmp, target)
     return target
 
@@ -294,3 +344,152 @@ def mutation_counts_plain(bank: torch.Tensor, filters: torch.Tensor,
     """The plain PyTorch version of mutation_counts (ops/reductions.py)."""
     MUTATION_COUNTS.add(plain=True)
     return reductions.mutation_counts(bank, filters, start, n_rows)
+
+
+# -- K3: the sparse-tier Mutations reduction --------------------------------
+
+def _check_stream(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor, device: torch.device) -> None:
+    """The CSR stream (idx, words [E]) and per-(leaf, partition) bounds
+    (starts, lens [L, P]), all int32 on `device`."""
+    _check("idx", idx, device, (None,))
+    _check("words", words, device, (idx.shape[0],))
+    _check("starts", starts, device, (None, None))
+    _check("lens", lens, device, tuple(starts.shape))
+    if starts.shape[0] and not starts.shape[1]:
+        raise ValueError("starts/lens need one segment per leaf at least")
+
+
+def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
+                  filters: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """counts[l] = sum over leaf l's segments [starts[l, p], +lens[l, p]) of
+    popcount(words[e] & filters[idx[e]]): int32[L] on the inputs' device.
+    Entries past the stream or with idx outside the filter count 0."""
+    device = filters.device
+    _check("filters", filters, device, (None,))
+    _check_stream(idx, words, starts, lens, device)
+    if device.type == "cpu":
+        return sparse_counts_plain(idx, words, filters, starts, lens)
+    if device.type != "cuda":
+        raise ValueError(f"sparse_counts: no kernel for device {device}")
+    lib = load_library()
+    out = torch.empty(starts.shape[0], dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.lapis_sparse_counts(
+            idx.data_ptr(), words.data_ptr(), filters.data_ptr(),
+            starts.data_ptr(), lens.data_ptr(), starts.shape[0],
+            starts.shape[1], filters.shape[0], idx.shape[0], out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "sparse_counts")
+    SPARSE_COUNTS.add()
+    return out
+
+
+def sparse_counts_plain(idx: torch.Tensor, words: torch.Tensor,
+                        filters: torch.Tensor, starts: torch.Tensor,
+                        lens: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of sparse_counts (ops/reductions.py)."""
+    SPARSE_COUNTS.add(plain=True)
+    return reductions.sparse_counts(idx, words, filters, starts, lens)
+
+
+# -- K4 and K5: densify sparse leaves ---------------------------------------
+
+def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
+                 lens: torch.Tensor, pw: int) -> torch.Tensor:
+    """[K, pw] int32 rows: row k is zero except at the entries of leaf k's
+    segments (starts/lens [K, P]), where row[idx[e]] = words[e]. Entries
+    past the stream or with idx outside [0, pw) are skipped."""
+    device = idx.device
+    _check_stream(idx, words, starts, lens, device)
+    if pw < 1:
+        raise ValueError(f"pw {pw} < 1")
+    if device.type == "cpu":
+        return densify_rows_plain(idx, words, starts, lens, pw)
+    if device.type != "cuda":
+        raise ValueError(f"densify_rows: no kernel for device {device}")
+    lib = load_library()
+    out = torch.empty((starts.shape[0], pw), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.lapis_densify_rows(
+            idx.data_ptr(), words.data_ptr(), starts.data_ptr(),
+            lens.data_ptr(), starts.shape[0], starts.shape[1], pw,
+            idx.shape[0], out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "densify_rows")
+    DENSIFY_ROWS.add()
+    return out
+
+
+def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
+                           words: torch.Tensor, starts: torch.Tensor,
+                           lens: torch.Tensor, slots) -> None:
+    """densify_rows with leaf k written in place into pool row slots[k]
+    (pool [C + 1, PW] int32); every other pool row stays as it was.
+    `slots` (K ints, on the host) must be distinct rows of the pool."""
+    device = pool.device
+    _check("pool", pool, device, (None, None))
+    _check_stream(idx, words, starts, lens, device)
+    slots = torch.as_tensor(slots, dtype=torch.int32).reshape(-1)
+    if slots.shape[0] != starts.shape[0]:
+        raise ValueError(f"{slots.shape[0]} slots for {starts.shape[0]} leaves")
+    if slots.numel() and (int(slots.min()) < 0
+                          or int(slots.max()) >= pool.shape[0]):
+        raise ValueError(f"slots outside the pool's rows [0, {pool.shape[0]})")
+    if torch.unique(slots).numel() != slots.numel():
+        raise ValueError("slots of one launch must be distinct")
+    if device.type == "cpu":
+        densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"densify_rows_into_pool: no kernel for device {device}")
+    lib = load_library()
+    slots = slots.to(device)
+    with torch.cuda.device(device):
+        err = lib.lapis_densify_rows_into_pool(
+            idx.data_ptr(), words.data_ptr(), starts.data_ptr(),
+            lens.data_ptr(), starts.shape[0], starts.shape[1], pool.shape[1],
+            idx.shape[0], slots.data_ptr(), pool.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "densify_rows_into_pool")
+    DENSIFY_INTO_POOL.add()
+
+
+def _densify(idx, words, starts, lens, pw) -> torch.Tensor:
+    """The densified rows [K, pw]: torch.zeros, then one index assignment
+    of every leaf's entries at (leaf, idx)."""
+    n_leaves, n_per_leaf = starts.shape
+    n_entries = idx.shape[0]
+    out = torch.zeros((n_leaves, pw), dtype=torch.int32, device=idx.device)
+    seg_starts = starts.reshape(-1).to(torch.int64)
+    seg_lens = lens.reshape(-1).to(torch.int64).clamp(min=0)
+    # entry j of segment s sits at stream position starts[s] + j
+    seg = torch.repeat_interleave(
+        torch.arange(seg_starts.shape[0], device=idx.device), seg_lens)
+    first = torch.cumsum(seg_lens, 0) - seg_lens
+    pos = (torch.arange(seg.shape[0], device=idx.device) - first[seg]
+           + seg_starts[seg])
+    inside = (pos >= 0) & (pos < n_entries)
+    pos = pos[inside]
+    leaf = seg[inside] // n_per_leaf
+    col = idx[pos].to(torch.int64)
+    keep = (col >= 0) & (col < pw)
+    out[leaf[keep], col[keep]] = words[pos[keep]]
+    return out
+
+
+def densify_rows_plain(idx, words, starts, lens, pw: int) -> torch.Tensor:
+    """The plain PyTorch version of densify_rows."""
+    DENSIFY_ROWS.add(plain=True)
+    return _densify(idx, words, starts, lens, pw)
+
+
+def densify_rows_into_pool_plain(pool, idx, words, starts, lens,
+                                 slots) -> None:
+    """The plain PyTorch version of densify_rows_into_pool: densify_rows'
+    rows assigned into pool[slots]."""
+    DENSIFY_INTO_POOL.add(plain=True)
+    slots = torch.as_tensor(slots, dtype=torch.int64).reshape(-1)
+    pool[slots.to(pool.device)] = _densify(idx, words, starts, lens,
+                                           pool.shape[1])

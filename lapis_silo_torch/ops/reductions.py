@@ -1,11 +1,12 @@
 """Plain reductions over device-resident words.
 
-Counterparts of ``_popcount_words_jit`` and ``_mutation_counts_jit`` in
-``lapis_silo_tpu/ops/reductions.py``. ``popcount_words`` runs as plain tensor
-ops on every device (the reference left it to XLA, too).
-``mutation_counts`` is the plain version of the Mutations kernel
-(``csrc/mutation_counts.cu``): ``ops/kernels.py`` calls it for tensors on the
-CPU, and the tests and ``chip_smoke.py`` hold the kernel against it.
+Counterparts of ``_popcount_words_jit``, ``_mutation_counts_jit`` and
+``_sparse_mutation_counts_jit`` in ``lapis_silo_tpu/ops/reductions.py``.
+``popcount_words`` runs as plain tensor ops on every device (the reference
+left it to XLA, too). ``mutation_counts`` and ``sparse_counts`` are the
+plain versions of the Mutations kernels (``csrc/mutation_counts.cu``,
+``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
+CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -35,3 +36,37 @@ def mutation_counts(bank: torch.Tensor, filters: torch.Tensor, start: int,
         rows = bank[start + lo : start + hi]
         out[lo:hi] = popcount(rows & filters[None, :]).sum(dim=1).to(torch.int32)
     return out
+
+
+def boundary_sums(vals: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """Sums of the contiguous segments [start, start + len) of `vals` (a
+    flat per-entry stream), clipped to the stream: an exclusive int64 prefix
+    sum and a gather at both boundaries (the reference's _boundary_sums,
+    lapis_silo_tpu/ops/reductions.py:44-56). int64 is exact with no
+    wraparound, where the reference relies on uint32 wrapping; empty and
+    negative-length segments sum to 0. int64 [S]."""
+    n = vals.shape[0]
+    prefix = torch.zeros(n + 1, dtype=torch.int64, device=vals.device)
+    torch.cumsum(vals.to(torch.int64), 0, out=prefix[1:])
+    starts = starts.to(torch.int64)
+    lo = starts.clamp(0, n)
+    hi = (starts + lens.to(torch.int64)).clamp(0, n)
+    return torch.where(hi > lo, prefix[hi] - prefix[lo], 0)
+
+
+def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
+                  filters: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """counts[l] = sum over leaf l's segments (starts/lens [L, P], one per
+    partition) of popcount(words[e] & filters[idx[e]]): the sparse-tier
+    Mutations reduction over the CSR stream (idx, words [E] int32), as
+    _sparse_mutation_counts_jit (lapis_silo_tpu/ops/reductions.py:59-78)
+    computes it. Entries whose word index lies outside the filter count 0.
+    int32 [L]: a leaf's count is at most the sequence count."""
+    pw = filters.shape[0]
+    inside = (idx >= 0) & (idx < pw)
+    gathered = filters[idx.clamp(0, max(pw - 1, 0)).to(torch.int64)]
+    vals = popcount(words & gathered) * inside
+    per_segment = boundary_sums(vals, starts.reshape(-1), lens.reshape(-1))
+    return per_segment.reshape(starts.shape).sum(dim=1).to(torch.int32)

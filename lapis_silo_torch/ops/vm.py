@@ -1,11 +1,12 @@
 """Filter-VM instruction set, wire format, shape buckets and program container.
 
 A copy, without JAX, of the ISA half of ``lapis_silo_tpu/ops/vm.py``: the
-lowering and the dense engine of the port need these names, and the JAX
+lowering and the device engine of the port need these names, and the JAX
 module imports ``jax`` at its top. ``tests/test_torch_isa.py`` holds every
 constant and encoder here equal to the reference. The executable builders of
 the reference module have no counterpart here: the VM runs as the CUDA kernel
-``csrc/vm_run.cu`` (plain version in ``ops/kernels.py``).
+``csrc/vm_run.cu`` and the densify steps as ``csrc/densify.cu`` (plain
+versions in ``ops/kernels.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,14 @@ def pack_wire(opcodes, regspec):
 WIRE_NOP = int(pack_wire(np.int64(NOP), np.int64(NO_DST)))
 
 
+def wire_opcode(packed):
+    return (packed >> WIRE_OP_SHIFT) & 0x3
+
+
+def wire_bsrc(packed):
+    return (packed >> WIRE_BSRC_SHIFT) & 0xF
+
+
 def pack_code_array(bucket: int, opcodes, operands, regspec) -> np.ndarray:
     """[2, bucket] wire code block: row 0 = operands, row 1 = packed words
     (NOP-padded tail)."""
@@ -97,10 +106,10 @@ def _round_instr(n: int) -> int:
     return -(-n // _UNROLL) * _UNROLL
 
 
-# Rows whose word-level density is below 1/SPARSE_DENSITY_CUTOFF would move
-# to the sparse tier, which switches on only when the all-dense bank exceeds
-# SPARSE_BANK_BUDGET_GB (override: SILO_DENSE_BANK_BUDGET_GB). The port has
-# the dense tier only and refuses databases that would need the other.
+# Rows whose word-level density is below 1/SPARSE_DENSITY_CUTOFF move to the
+# sparse tier (a CSR stream of the rows' non-zero words), which switches on
+# only when the all-dense bank would exceed SPARSE_BANK_BUDGET_GB (override:
+# SILO_DENSE_BANK_BUDGET_GB).
 SPARSE_DENSITY_CUTOFF = 8
 SPARSE_BANK_BUDGET_GB = 12.0
 
@@ -113,14 +122,44 @@ class ProgramTooLarge(Exception):
     pass
 
 
+# Sparse-tier caps, kept equal to the reference's so that a program is
+# refused, and a batch split, where the reference refuses and splits it:
+# the widest K bucket whose densified [K, PW] block fits _SPARSE_K_BYTE_CAP
+# is the poolless leaf cap (max_sparse_k), and _smem_k_cap bounds both it and
+# the pool-update chunk. The SMEM budget is a TPU limit the CUDA kernels do
+# not have; the port keeps it as a chunking rule only.
+_SPARSE_K_BUCKETS = (0, 4, 16, 64, 256, 1024, 2048, 4096)
+_SPARSE_K_BYTE_CAP = 384 << 20
+_SPARSE_K_SMEM_BYTE_CAP = 256 << 10
+# live stream entries one poolless densify may gather (the reference's top
+# entry bucket; the port has no entry buckets below it)
+_SPARSE_E_MAX = 1 << 24
+
+
+def _smem_k_cap(n_partitions: int) -> int:
+    """Widest K bucket whose [K * n_partitions] int32 starts/lens fit
+    _SPARSE_K_SMEM_BYTE_CAP; raises ProgramTooLarge past 16,384 partitions,
+    as the reference does."""
+    fit = [b for b in _SPARSE_K_BUCKETS[1:]
+           if b * n_partitions * 4 <= _SPARSE_K_SMEM_BYTE_CAP]
+    if not fit:
+        raise ProgramTooLarge(
+            f"sparse-tier densify needs K>={_SPARSE_K_BUCKETS[1]} x "
+            f"{n_partitions} partitions of i32 bounds, over the "
+            f"{_SPARSE_K_SMEM_BYTE_CAP >> 10} KB budget: reduce the "
+            "partition count or disable the sparse tier "
+            "(SILO_DENSE_BANK_BUDGET_GB)")
+    return max(fit)
+
+
 class _Program:
     def __init__(self):
         self.opcodes: list[int] = []
         self.operands: list[int] = []
         self.regspec: list[int] = []  # dst | ra<<8 | rb<<16 | mode<<24
         self.dyn_rows: list[list[np.ndarray]] = []  # per dyn leaf: per partition words
-        # per sparse leaf: the global sparse-row id (never filled by the
-        # dense-only port; kept so programs match the reference's)
+        # per sparse leaf: the global sparse-row id; B_SPARSE operands index
+        # this list until dispatch maps them onto densified or pool rows
         self.sparse_leaves: list[int] = []
         self._sparse_cache: dict = {}
         self.max_regs = MAX_REGS

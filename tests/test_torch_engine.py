@@ -18,7 +18,7 @@ import torch
 import lapis_silo_torch
 from lapis_silo_tpu.ops import device_engine as ref_de
 from lapis_silo_tpu.query import ast
-from lapis_silo_tpu.query.engine import Query
+from lapis_silo_tpu.query.engine import Query, QueryEngine
 from lapis_silo_tpu.query.ir import HostEvaluator
 from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
 from lapis_silo_torch.ops import kernels
@@ -184,11 +184,21 @@ def test_concurrent_counts_coalesce_exactly():
     assert threading.active_count() < 64
 
 
-def test_two_tier_database_is_refused(monkeypatch):
+def test_two_tier_database_is_served(monkeypatch):
+    """A database whose all-dense bank would exceed the budget gets the
+    two-tier bank from install() and answers counts and Mutations equal to
+    the host oracle."""
     monkeypatch.setenv("SILO_DENSE_BANK_BUDGET_GB", "0.00001")
-    db = synthetic_database(512, 200, n_partitions=2, seed=1)
-    with pytest.raises(NotImplementedError, match="two-tier"):
-        lapis_silo_torch.install(db, CPU)
+    monkeypatch.setenv("SILO_LEAF_POOL_GB", "0.01")  # the budget leaves none
+    db = synthetic_database(512, 2000, n_partitions=2, seed=1)
+    queries = sample_count_queries(db, 24, seed=2) + [json.dumps({
+        "action": {"type": "Mutations", "minProportion": 0.0},
+        "filterExpression": {"type": "HasNucleotideMutation",
+                             "position": 901}})]
+    want = [QueryEngine(db, use_device=False).execute(q) for q in queries]
+    engine = lapis_silo_torch.install(db, CPU)
+    assert engine.n_sparse > 0 and engine.pool_slots > 0
+    assert [db.execute_query(q) for q in queries] == want
 
 
 def test_query_engine_falls_back_only_on_program_limits():

@@ -17,12 +17,36 @@ ISA_NAMES = [
     "_LEN_BUCKETS", "_BATCH_LEN_BUCKETS", "SERVE_LEN_BUCKET", "_DYN_BUCKETS",
     "MAX_BATCH_QUERIES", "MAX_REGS", "_REG_BUCKETS", "_UNROLL",
     "SPARSE_DENSITY_CUTOFF", "SPARSE_BANK_BUDGET_GB",
+    "_SPARSE_K_BUCKETS", "_SPARSE_K_BYTE_CAP", "_SPARSE_K_SMEM_BYTE_CAP",
 ]
 
 
 @pytest.mark.parametrize("name", ISA_NAMES)
 def test_isa_constant_matches_reference(name):
     assert getattr(vm, name) == getattr(ref_vm, name)
+
+
+def test_sparse_entry_limit_and_k_cap_match_reference():
+    """The poolless entry limit is the reference's top entry bucket, and the
+    K cap agrees for every partition count, including the refusal past
+    16,384 partitions (4 leaves x 16,384 x 4 bytes fill the budget)."""
+    assert vm._SPARSE_E_MAX == ref_vm._SPARSE_E_BUCKETS[-1]
+    for n_partitions in (1, 2, 3, 8, 16, 32, 100, 1024, 8192, 16384):
+        assert vm._smem_k_cap(n_partitions) == ref_vm._smem_k_cap(n_partitions)
+    with pytest.raises(vm.ProgramTooLarge):
+        vm._smem_k_cap(16385)
+    with pytest.raises(ref_vm.ProgramTooLarge):
+        ref_vm._smem_k_cap(16385)
+
+
+def test_wire_field_readers_match_reference():
+    rng = np.random.default_rng(4)
+    opcodes, _operands, regspec = _random_program(rng, 200)
+    packed = vm.pack_wire(opcodes, regspec)
+    np.testing.assert_array_equal(vm.wire_opcode(packed),
+                                  ref_vm.wire_opcode(packed))
+    np.testing.assert_array_equal(vm.wire_bsrc(packed), ref_vm.wire_bsrc(packed))
+    np.testing.assert_array_equal(vm.wire_opcode(packed), opcodes)
 
 
 def _random_program(rng, n):

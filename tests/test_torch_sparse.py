@@ -1,0 +1,251 @@
+"""The port's sparse-tier kernels against the JAX package's: the plain
+versions of densify_rows, densify_rows_into_pool and sparse_counts (run by
+the wrappers for CPU tensors) must equal the Mosaic kernels in interpret
+mode and the XLA forms, exactly: every value is an integer or a word, so the
+tolerance is equality. The reference takes the stream in its combined,
+block-interleaved and padded layout; the port takes the same entries as two
+flat arrays. The CUDA kernels are held to the plain versions on the card
+(marked `cuda`)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lapis_silo_tpu.ops import pallas_kernels as pk
+from lapis_silo_tpu.ops import reductions as ref_reductions
+from lapis_silo_tpu.ops import vm as ref_vm
+from lapis_silo_torch.ops import kernels, reductions
+
+
+def _stream(rng, n_leaves, n_parts, part_words, max_len, empty=()):
+    """A partition-major stream like the engine's: segment (leaf, p) holds
+    sorted unique global word indices inside partition p's window. Returns
+    (idx int32 [E], words uint32 [E], starts, lens int32 [K, P])."""
+    lens = rng.integers(0, max_len + 1, size=(n_leaves, n_parts))
+    lens = np.minimum(lens, part_words)
+    for leaf, part in empty:
+        lens[leaf, part] = 0
+    starts = np.zeros((n_leaves, n_parts), dtype=np.int64)
+    idx, words = [], []
+    pos = 0
+    for part in range(n_parts):
+        for leaf in range(n_leaves):
+            n = int(lens[leaf, part])
+            starts[leaf, part] = pos
+            idx.append(np.sort(rng.choice(part_words, size=n, replace=False))
+                       + part * part_words)
+            words.append(rng.integers(1, 2**32, size=n, dtype=np.uint32))
+            pos += n
+    return (np.concatenate(idx).astype(np.int32), np.concatenate(words),
+            starts.astype(np.int32), lens.astype(np.int32))
+
+
+def _combined(idx, words, multiple):
+    """The reference's combined stream, padded to a `multiple` of entries
+    with zero words past the live ones."""
+    n = -(-max(len(idx), 1) // multiple) * multiple
+    pad_idx = np.zeros(n, np.int32)
+    pad_words = np.zeros(n, np.uint32)
+    pad_idx[: len(idx)] = idx
+    pad_words[: len(words)] = words
+    return jnp.asarray(pk.combine_stream(pad_idx, pad_words))
+
+
+def _t(array):
+    return torch.from_numpy(np.ascontiguousarray(array).view(np.int32))
+
+
+def _densify_window_pad(n_entries):
+    """The Mosaic densify kernel's over-read pad (DENSIFY_WINDOW)."""
+    return -(-(n_entries + pk.DENSIFY_WINDOW) // pk.COMBINE_BLOCK) * pk.COMBINE_BLOCK
+
+
+@pytest.mark.parametrize("n_leaves,n_parts,part_words", [
+    (5, 3, 512), (1, 1, 256), (7, 2, 640)])
+def test_plain_densify_matches_reference_forms(n_leaves, n_parts, part_words):
+    """Plain K4 against the XLA densify (vm._densify_one) and the Mosaic
+    kernel densify_rows in interpret mode, with empty segments."""
+    rng = np.random.default_rng(n_leaves * 100 + n_parts)
+    idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
+                                       300, empty=[(0, 0)])
+    pw = n_parts * part_words
+    got = kernels.densify_rows(_t(idx), _t(words), _t(starts), _t(lens), pw)
+    assert got.dtype == torch.int32 and got.shape == (n_leaves, pw)
+    got = got.numpy().view(np.uint32)
+    comb = _combined(idx, words, pk.COMBINE_BLOCK)
+    flat_starts, flat_lens = jnp.asarray(starts.reshape(-1)), jnp.asarray(
+        lens.reshape(-1))
+    xla = np.asarray(jax.jit(lambda *a: ref_vm._densify_one(
+        n_leaves, 1 << 13, pw, n_parts, *a))(comb, flat_starts, flat_lens))
+    np.testing.assert_array_equal(got, xla)
+    mosaic = np.asarray(pk.densify_rows(
+        _combined(idx, words, _densify_window_pad(len(idx))), flat_starts,
+        flat_lens, n_leaves, pw, interpret=True))
+    np.testing.assert_array_equal(got, mosaic)
+    # and against the definition
+    want = np.zeros((n_leaves, pw), np.uint32)
+    for leaf in range(n_leaves):
+        for part in range(n_parts):
+            s, n = starts[leaf, part], lens[leaf, part]
+            want[leaf, idx[s:s + n]] = words[s:s + n]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plain_densify_into_pool_matches_mosaic_interpreted():
+    """Plain K5 against densify_rows_into_pool in interpret mode: the slot
+    rows (the scratch row C among them) are replaced, every other row of a
+    pool full of old words stays as it was."""
+    rng = np.random.default_rng(5)
+    n_leaves, n_parts, part_words, n_slots = 4, 2, 384, 9
+    idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
+                                       200, empty=[(2, 1)])
+    pw = n_parts * part_words
+    pool = rng.integers(0, 2**32, size=(n_slots + 1, pw), dtype=np.uint32)
+    slots = np.array([7, n_slots, 0, 3], np.int32)
+    got = _t(pool.copy())
+    kernels.densify_rows_into_pool(got, _t(idx), _t(words), _t(starts),
+                                   _t(lens), slots.tolist())
+    want = np.asarray(pk.densify_rows_into_pool(
+        jnp.asarray(pool.reshape(n_slots + 1, pw // 128, 128)),
+        _combined(idx, words, _densify_window_pad(len(idx))),
+        jnp.asarray(starts.reshape(-1)), jnp.asarray(lens.reshape(-1)),
+        jnp.asarray(slots), n_leaves, pw, interpret=True))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.reshape(n_slots + 1, pw))
+    untouched = sorted(set(range(n_slots + 1)) - set(slots.tolist()))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32)[untouched],
+                                  pool[untouched])
+
+
+def test_plain_sparse_counts_matches_reference_forms(monkeypatch):
+    """Plain K3 against _sparse_mutation_counts_jit (XLA gather) and
+    _sparse_mutation_counts_pallas_jit, whose per-entry values come from the
+    Mosaic kernel sparse_filter_popcount in interpret mode over a stream
+    padded to SPARSE_CHUNK."""
+    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(9)
+    n_leaves, n_parts, part_words = 40, 4, 512
+    idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
+                                       120, empty=[(3, 1), (39, 3)])
+    filters = rng.integers(0, 2**32, size=n_parts * part_words,
+                           dtype=np.uint32)
+    got = kernels.sparse_counts(_t(idx), _t(words), _t(filters), _t(starts),
+                                _t(lens))
+    assert got.dtype == torch.int32 and got.shape == (n_leaves,)
+    comb = _combined(idx, words, pk.SPARSE_CHUNK)
+    args = (jnp.asarray(filters), jnp.asarray(starts.reshape(-1)),
+            jnp.asarray(lens.reshape(-1)), n_parts)
+    xla = np.asarray(ref_reductions._sparse_mutation_counts_jit(comb, *args))
+    mosaic = np.asarray(ref_reductions._sparse_mutation_counts_pallas_jit(
+        comb, *args))
+    np.testing.assert_array_equal(got.numpy(), xla)
+    np.testing.assert_array_equal(got.numpy(), mosaic)
+    vals = np.bitwise_count(words & filters[idx]).astype(np.int64)
+    want = [sum(int(vals[s:s + n].sum()) for s, n in zip(starts[leaf],
+                                                         lens[leaf]))
+            for leaf in range(n_leaves)]
+    assert got.tolist() == want
+
+
+def test_boundary_sums_exact_where_the_reference_wraps():
+    """Values near 2^31: the reference's uint32 cumsum wraps many times
+    over and stays exact by modular differences; the port's int64 prefix
+    sum gives the same segment sums without wrapping (ROADMAP Queue 3
+    item 3)."""
+    rng = np.random.default_rng(31)
+    vals = rng.integers(2**31 - 4096, 2**31, size=4000, dtype=np.int64)
+    lens = rng.integers(0, 3, size=1500)  # a segment sums to < 2^32
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    starts[-5:] = 4000 - 2  # overlapping tail segments
+    lens[-5:] = [2, 1, 0, 2, 1]
+    got = reductions.boundary_sums(torch.from_numpy(vals),
+                                   torch.from_numpy(starts),
+                                   torch.from_numpy(lens))
+    want = np.asarray(ref_reductions._boundary_sums(
+        jnp.asarray(vals.astype(np.uint32)), jnp.asarray(starts),
+        jnp.asarray(lens)))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert int(got.max()) > 2**32 - 2**14  # sums past int32 stay exact
+    assert got.tolist() == [int(vals[s:s + n].sum())
+                            for s, n in zip(starts, lens)]
+
+
+def test_sparse_wrappers_count_plain_runs_and_check_inputs():
+    rng = np.random.default_rng(2)
+    idx, words, starts, lens = _stream(rng, 3, 2, 128, 20)
+    args = (_t(idx), _t(words), _t(starts), _t(lens))
+    pool = torch.zeros((5, 256), dtype=torch.int32)
+    before = [(k.launches, k.plain_launches) for k in (
+        kernels.SPARSE_COUNTS, kernels.DENSIFY_ROWS, kernels.DENSIFY_INTO_POOL)]
+    kernels.sparse_counts(args[0], args[1], torch.zeros(256, dtype=torch.int32),
+                          *args[2:])
+    kernels.densify_rows(*args, 256)
+    kernels.densify_rows_into_pool(pool, *args, [4, 0, 2])
+    after = [(k.launches, k.plain_launches) for k in (
+        kernels.SPARSE_COUNTS, kernels.DENSIFY_ROWS, kernels.DENSIFY_INTO_POOL)]
+    assert after == [(n, p + 1) for n, p in before]
+    for slots in ([0, 0, 1], [0, 1, 5], [-1, 0, 1], [0, 1]):
+        with pytest.raises(ValueError):
+            kernels.densify_rows_into_pool(pool, *args, slots)
+    with pytest.raises(ValueError):
+        kernels.densify_rows(args[0], args[1][:-1].clone(), *args[2:], 256)
+    with pytest.raises(ValueError):
+        kernels.densify_rows(*args[:3], args[3][:, :1].contiguous(), 256)
+
+
+def test_plain_versions_skip_entries_outside_row_and_stream():
+    """A bad stream cannot write outside the row or read past the stream:
+    indices outside [0, pw) and segments past the stream's end are
+    skipped by the plain versions, as by the kernels."""
+    idx = torch.tensor([0, 5, 300, -1, 7], dtype=torch.int32)
+    words = torch.tensor([1, 2, 4, 8, 16], dtype=torch.int32)
+    starts = torch.tensor([[0], [3]], dtype=torch.int32)
+    lens = torch.tensor([[3], [9]], dtype=torch.int32)
+    rows = kernels.densify_rows(idx, words, starts, lens, 8)
+    assert rows[0].tolist() == [1, 0, 0, 0, 0, 2, 0, 0]
+    assert rows[1].tolist() == [0, 0, 0, 0, 0, 0, 0, 16]
+    filters = torch.full((8,), -1, dtype=torch.int32)
+    assert kernels.sparse_counts(idx, words, filters, starts,
+                                 lens).tolist() == [2, 1]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves,n_parts,part_words", [
+    (1, 1, 131), (33, 4, 2045), (300, 8, 512)])
+def test_sparse_kernels_match_plain_on_card(cuda_device, n_leaves, n_parts,
+                                            part_words):
+    """K3, K4 and K5 against their plain versions: K = 1, ragged PWs (not a
+    multiple of 4 or 128), empty segments, and pool slots that include the
+    scratch row C."""
+    rng = np.random.default_rng(n_leaves)
+    idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
+                                       150, empty=[(0, 0)])
+    pw = n_parts * part_words
+    cpu = [_t(a) for a in (idx, words, starts, lens)]
+    dev = [a.to(cuda_device) for a in cpu]
+    filters = _t(rng.integers(0, 2**32, size=pw, dtype=np.uint32))
+    assert torch.equal(
+        kernels.sparse_counts(dev[0], dev[1], filters.to(cuda_device),
+                              *dev[2:]).cpu(),
+        kernels.sparse_counts(cpu[0], cpu[1], filters, *cpu[2:]))
+    assert torch.equal(kernels.densify_rows(*dev, pw).cpu(),
+                       kernels.densify_rows(*cpu, pw))
+    pool = _t(rng.integers(0, 2**32, size=(n_leaves + 3, pw), dtype=np.uint32))
+    # the scratch row C = n_leaves + 2 first, then distinct others
+    slots = np.concatenate([[n_leaves + 2],
+                            rng.permutation(n_leaves + 2)[: n_leaves - 1]])
+    pool_dev = pool.to(cuda_device)
+    kernels.densify_rows_into_pool(pool_dev, *dev, slots.tolist())
+    kernels.densify_rows_into_pool(pool, *cpu, slots.tolist())
+    torch.cuda.synchronize()
+    assert torch.equal(pool_dev.cpu(), pool)
