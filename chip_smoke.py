@@ -5,13 +5,15 @@
 
 Phases, one line each or more (the last line is the JSON verdict):
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build the five CUDA kernels from lapis_silo_torch/csrc (one nvcc per
+  2. build the CUDA kernels from lapis_silo_torch/csrc (one nvcc per
      source, all at once; seconds, and the compiler's register report);
-  3. each kernel against its plain PyTorch version on the card, bit-exact
-     (tolerance 0: every value is an integer), on random inputs (ragged word
-     counts, empty segments, K = 1 and K at the caps, pool slots including
-     the scratch row) and at the main paths' shapes, with both times there
-     (the two-tier shapes are compared in phase 7's set-up);
+  3. each kernel and kernel wrapper against its plain PyTorch version on the
+     card, bit-exact (tolerance 0: every value is an integer), on random
+     inputs (ragged word counts, empty segments, K = 1 and K at the caps,
+     pool slots including the scratch row, densify windows of word shards,
+     the VM over 4 word shards) and at the main paths' shapes, with both
+     times there (the two-tier shapes are compared in phase 7's set-up, the
+     sharded ones in phase 8a's);
   4. the dense main path at the bench default, 65,536 sequences x 29,903
      positions in 1 partition: (a) 64 count queries through
      db.execute_query, one at a time and then from a thread pool so the
@@ -20,6 +22,13 @@ Phases, one line each or more (the last line is the JSON verdict):
      to the host oracle;
   5. the same checks at 1,048,576 sequences x 29,903 positions in 4
      partitions (a dense bank of about 11.8 GB on the card);
+  8a. phase 5's corpus and oracle answers on the word-sharded engine: the
+     single-device engine freed, install(db, ..., devices=[4 shards]) places
+     the shards round-robin on the visible cards (all four on one card when
+     there is one; the phase says which), four [89,709, 8,192] banks; the 64
+     counts, a 512-query count_programs call and one Mutations query, all
+     equal to the host oracle; vm_run_sharded and mutation_counts_sharded
+     against their plain versions at these shapes, with both times;
   7. the two-tier deployment, 2,097,152 sequences x 29,903 positions in 8
      partitions, whose all-dense bank (about 23.5 GB) exceeds the 12 GiB
      budget, so the engine builds the CSR sparse tier and the hot-leaf pool:
@@ -27,7 +36,12 @@ Phases, one line each or more (the last line is the JSON verdict):
      count_programs (pooled) and through count_dispatches with
      force_poolless (densified blocks), (c) two Mutations queries; all equal
      to the host oracle;
-  6. assertions: every kernel launched during phases 4, 5 and 7 and no plain
+  8b. phase 7's corpus on 4 word shards of 16,384 words: cold and hot counts,
+     the pooled and the poolless wide batch, two Mutations queries, all equal
+     to the host oracle, through the window-local pool updates and densified
+     blocks and the entry-split sparse Mutations;
+  6. assertions: every kernel launched during phases 4, 5, 7 and 8 (but
+     popcount_rows_and_filter, which no engine path calls) and no plain
      version ran there, no JAX module was imported, the device path stayed
      on.
 
@@ -58,6 +72,9 @@ DEVICE = "cuda"
 BENCH = dict(n_rows=65536, length=29903, n_partitions=1)
 DEPLOYMENT = dict(n_rows=1048576, length=29903, n_partitions=4)
 TWO_TIER = dict(n_rows=2097152, length=29903, n_partitions=8)
+N_SHARDS = 4
+# kernels that no main-path phase runs (they have no engine caller)
+OFF_PATH = ("popcount_rows_and_filter",)
 # the JAX package's device layer: none of these may be imported
 JAX_MODULES = ("jax", "jaxlib", "lapis_silo_tpu.ops.device_engine",
                "lapis_silo_tpu.ops.vm", "lapis_silo_tpu.ops.lowering",
@@ -66,7 +83,9 @@ JAX_MODULES = ("jax", "jaxlib", "lapis_silo_tpu.ops.device_engine",
 REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
             in (("vm_run", 526), ("mutation_counts", 150),
                 ("sparse_counts", 438), ("densify_rows", 850),
-                ("densify_rows_into_pool", 1252))}
+                ("densify_rows_into_pool", 1252), ("vm_run_sharded", 741),
+                ("mutation_counts_sharded", 777),
+                ("popcount_rows_and_filter", 104))}
 
 
 def log(phase: str, message: str) -> None:
@@ -249,6 +268,17 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
             want = kernels.vm_run_plain(*args)
             for g, w in zip(got, want):
                 err["vm_run"] = max(err["vm_run"], max_abs_err(g, w))
+            if pw % 4 == 0:  # the same program over 4 word shards
+                shards = (*args[:2], *([dev(part) for part in np.split(
+                    a, 4, axis=-1)] for a in (bank, dyn, sparse, full)),
+                          n_regs)
+                (got_words, got_counts), (want_words, want_counts) = (
+                    kernels.vm_run_sharded(*shards),
+                    kernels.vm_run_sharded_plain(*shards))
+                err["vm_run_sharded"] = max(
+                    err["vm_run_sharded"],
+                    max_abs_err(got_counts, want_counts),
+                    *map(max_abs_err, got_words, want_words))
     for pw, start, n_rows in ((2048, 3, 1000), (2045, 1, 999), (77, 0, 1003)):
         bank = dev(rng.integers(0, 1 << 32, size=(1003, pw), dtype=np.uint32))
         filt = dev(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32))
@@ -267,9 +297,14 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
         err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
             kernels.sparse_counts(idx, words, filt, starts, lens),
             kernels.sparse_counts_plain(idx, words, filt, starts, lens)))
-        err["densify_rows"] = max(err["densify_rows"], max_abs_err(
-            kernels.densify_rows(idx, words, starts, lens, pw),
-            kernels.densify_rows_plain(idx, words, starts, lens, pw)))
+        # the whole row, then the windows of 3 word shards (their edges fall
+        # inside partitions)
+        for window, w_off in ((pw, 0), *((pw // 3, d * (pw // 3))
+                                         for d in range(3))):
+            err["densify_rows"] = max(err["densify_rows"], max_abs_err(
+                kernels.densify_rows(idx, words, starts, lens, window, w_off),
+                kernels.densify_rows_plain(idx, words, starts, lens, window,
+                                           w_off)))
         # pool rows [0, n_pool] full of old words; slots: the scratch row
         # n_pool first, then distinct others
         pool = dev(rng.integers(0, 1 << 32, size=(n_pool + 1, pw),
@@ -280,6 +315,15 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
         kernels.densify_rows_into_pool(pool, idx, words, starts, lens, slots)
         kernels.densify_rows_into_pool_plain(want, idx, words, starts, lens,
                                              slots)
+        err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
+                                            max_abs_err(pool, want))
+        window = pw // 3  # the pool shard of the middle one of 3 shards
+        pool = pool[:, :window].contiguous()
+        want = pool.clone()
+        kernels.densify_rows_into_pool(pool, idx, words, starts, lens, slots,
+                                       window)
+        kernels.densify_rows_into_pool_plain(want, idx, words, starts, lens,
+                                             slots, window)
         err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
                                             max_abs_err(pool, want))
     torch.cuda.synchronize()
@@ -298,7 +342,7 @@ def two_tier_kernels(engine, kernels, torch, err: dict, timings: dict) -> None:
     stream = (engine.sparse_idx, engine.sparse_words)
     filt = torch.from_numpy(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
                             .view(np.int32)).to(device)
-    args = (*stream, filt, engine._sparse_bounds[0], engine._sparse_bounds[1])
+    args = (*stream, filt, *engine._sparse_chunks[0][2:])
     err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
         kernels.sparse_counts(*args), kernels.sparse_counts_plain(*args)))
     timings["sparse_counts"] = (
@@ -351,11 +395,11 @@ def two_tier_kernels(engine, kernels, torch, err: dict, timings: dict) -> None:
 
 
 def phase7(main: MainPath, kernels, torch, device, err: dict,
-           timings: dict) -> None:
+           timings: dict) -> dict:
     """The two-tier deployment: set-up, kernel comparisons at its shapes,
-    then the main path against the host oracle."""
+    then the main path against the host oracle. Returns the corpus (its
+    engine dropped) and the oracle's answers for phase 8b."""
     import lapis_silo_torch
-    from lapis_silo_tpu.query.engine import Query
     from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
 
     t0 = time.perf_counter()
@@ -386,15 +430,36 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
     want64, want_wide, want_muts = (oracle(db, counts64), oracle(db, wide),
                                     oracle(db, muts))
     log("7 oracle", f"host oracle answered in {time.perf_counter() - t0:.1f} s")
-    want_wide = [w["queryResult"][0]["count"] for w in want_wide]
-    lowered = [engine.lower(Query(q).filter)[0] for q in wide]
+    answers = dict(db=db, counts64=counts64, want64=want64, wide=wide,
+                   want_wide=[w["queryResult"][0]["count"] for w in want_wide],
+                   muts=muts, want_muts=want_muts)
     torch.cuda.reset_peak_memory_stats()  # the comparisons' temporaries
+    two_tier_path(main, kernels, engine, answers, ("7a", "7b", "7c"))
+    log("7 done", f"peak device memory over 7a-7c "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (stream, pool, "
+        f"densified blocks)")
+    del engine
+    detach(db, torch)
+    return answers
+
+
+def two_tier_path(main: MainPath, kernels, engine, answers: dict,
+                  labels: tuple) -> None:
+    """The two-tier main path against the host oracle's answers: (a) the 64
+    counts cold and then hot, (b) the 512 queries through count_programs
+    (pooled) and through count_dispatches with force_poolless (densified
+    blocks), (c) the Mutations queries."""
+    from lapis_silo_tpu.query.engine import Query
+
+    db, want_wide = answers["db"], answers["want_wide"]
+    lowered = [engine.lower(Query(q).filter)[0] for q in answers["wide"]]
     with main.phase():
         for label in ("cold", "hot"):
             hits, misses = engine.pool_hits, engine.pool_misses
-            run_counts(db, counts64, want64, f"7a {label}")
-            log(f"7a {label}", f"pool hits {engine.pool_hits - hits}, misses "
-                f"{engine.pool_misses - misses}")
+            run_counts(db, answers["counts64"], answers["want64"],
+                       f"{labels[0]} {label}")
+            log(f"{labels[0]} {label}", f"pool hits {engine.pool_hits - hits}, "
+                f"misses {engine.pool_misses - misses}")
         launches = kernels.DENSIFY_INTO_POOL.launches
         hits, misses = engine.pool_hits, engine.pool_misses
         t0 = time.perf_counter()
@@ -403,10 +468,11 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
         assert got == want_wide
         n_updates = kernels.DENSIFY_INTO_POOL.launches - launches
         assert n_updates > 0, "the wide batch did not ride the pool"
-        log("7b pooled", f"{len(wide)} queries in one count_programs call equal "
-            f"the host oracle; {wide_s * 1e3:.2f} ms "
-            f"({len(wide) / wide_s:.0f} queries/s, lowering excluded); "
-            f"{n_updates} pool updates, pool hits {engine.pool_hits - hits}, "
+        log(f"{labels[1]} pooled", f"{len(lowered)} queries in one "
+            f"count_programs call equal the host oracle; {wide_s * 1e3:.2f} ms "
+            f"({len(lowered) / wide_s:.0f} queries/s, lowering excluded); "
+            f"{n_updates} pool-update launches, pool hits "
+            f"{engine.pool_hits - hits}, "
             f"misses {engine.pool_misses - misses}")
         launches = kernels.DENSIFY_ROWS.launches
         t0 = time.perf_counter()
@@ -418,14 +484,137 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
         assert got == want_wide
         n_blocks = kernels.DENSIFY_ROWS.launches - launches
         assert n_blocks > 0, "the poolless batch densified nothing"
-        log("7b poolless", f"the same {len(wide)} through count_dispatches("
-            f"force_poolless=True) equal the host oracle; {wide_s * 1e3:.2f} ms "
-            f"({len(wide) / wide_s:.0f} queries/s); {n_blocks} densified blocks")
-        run_mutations(db, muts, want_muts, "7c mutations")
+        log(f"{labels[1]} poolless", f"the same {len(lowered)} through "
+            f"count_dispatches(force_poolless=True) equal the host oracle; "
+            f"{wide_s * 1e3:.2f} ms ({len(lowered) / wide_s:.0f} queries/s); "
+            f"{n_blocks} densified blocks")
+        run_mutations(db, answers["muts"], answers["want_muts"],
+                      f"{labels[2]} mutations")
         assert db._engine._use_device
-    log("7 done", f"peak device memory over 7a-7c "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (stream, pool, "
-        f"densified blocks)")
+
+
+def detach(db, torch) -> None:
+    """Drop the device engine installed on `db` and free its memory."""
+    db.device_engine = None
+    with db._engine_lock:
+        db._engine = None
+    gc.collect()  # the engine and its database reference each other
+    torch.cuda.empty_cache()
+
+
+def install_sharded(db, torch, label: str):
+    """install() with N_SHARDS word shards placed round-robin on the visible
+    cards, and its set-up logged."""
+    import lapis_silo_torch
+
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device(DEVICE, d % n_cards) for d in range(N_SHARDS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = lapis_silo_torch.install(db, devices[0], devices=devices)
+    for card in set(devices):
+        torch.cuda.synchronize(card)
+    t_engine = time.perf_counter() - t0
+    cards = len(set(devices))
+    bank = engine.banks[0]
+    log(f"{label} setup", f"{N_SHARDS} word shards on "
+        f"{[str(d) for d in devices]}: {cards} card(s), "
+        + ("all shards on one card, so no copy crosses cards"
+           if cards == 1 else "counts and filters copied across cards")
+        + f"; n_words {engine.n_words}, {engine.shards.local_words} words per "
+        f"shard; bank {tuple(bank.shape)} per shard "
+        f"({bank.numel() * 4 / 1e9:.2f} GB each); n_sparse {engine.n_sparse}, "
+        f"pool_slots {engine.pool_slots}; built in {t_engine:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return engine
+
+
+def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
+                    timings: dict) -> None:
+    """vm_run_sharded (the wide batch's programs) and
+    mutation_counts_sharded (the main segment against a Mutations filter)
+    against their plain versions at the sharded engine's shapes, with both
+    times."""
+    from lapis_silo_tpu.query.engine import Query
+
+    on_device = [p for p in lowered
+                 if engine.host_count(p, allow_interpret=False) is None]
+    inputs = engine.kernel_inputs(engine.batch_args(on_device))
+    (got_words, got_counts), (want_words, want_counts) = (
+        kernels.vm_run_sharded(*inputs), kernels.vm_run_sharded_plain(*inputs))
+    err["vm_run_sharded"] = max(err["vm_run_sharded"],
+                                max_abs_err(got_counts, want_counts),
+                                *map(max_abs_err, got_words, want_words))
+    timings["vm_run_sharded"] = (
+        cuda_ms(lambda: kernels.vm_run_sharded(*inputs), reps=20),
+        cuda_ms(lambda: kernels.vm_run_sharded_plain(*inputs), reps=1,
+                warmup=0))
+    filters = engine.device_filter(Query(mut_query).filter).parts
+    meta = engine.segment_meta[("nuc", "main")]
+    args = (engine.banks, filters, meta["offset"], meta["n_stored"])
+    err["mutation_counts_sharded"] = max(
+        err["mutation_counts_sharded"], max_abs_err(
+            kernels.mutation_counts_sharded(*args),
+            kernels.mutation_counts_sharded_plain(*args)))
+    timings["mutation_counts_sharded"] = (
+        cuda_ms(lambda: kernels.mutation_counts_sharded(*args), reps=20),
+        cuda_ms(lambda: kernels.mutation_counts_sharded_plain(*args), reps=2,
+                warmup=1))
+    log("8a kernels", f"sharded shapes bit-exact, max_abs_err "
+        f"{ {k: err[k] for k in ('vm_run_sharded', 'mutation_counts_sharded')} }; "
+        f"vm_run_sharded {len(on_device)} programs, {inputs[1]} instructions, "
+        f"{len(engine.banks)} shards of {engine.shards.local_words} words: "
+        f"kernel {timings['vm_run_sharded'][0]:.4f} ms, plain "
+        f"{timings['vm_run_sharded'][1]:.1f} ms; mutation_counts_sharded "
+        f"{meta['n_stored']} rows x {len(engine.banks)} shards of "
+        f"{engine.shards.local_words} words: kernel "
+        f"{timings['mutation_counts_sharded'][0]:.4f} ms, plain "
+        f"{timings['mutation_counts_sharded'][1]:.2f} ms")
+
+
+def phase8a(main: MainPath, kernels, torch, db, counts64, want64, muts,
+            want_muts, err: dict, timings: dict) -> None:
+    """Phase 5's corpus and answers on the sharded engine (the single-device
+    engine already dropped), with the sharded kernels compared first."""
+    from lapis_silo_tpu.query.engine import Query
+    from lapis_silo_tpu.testing import sample_count_queries
+
+    wide = sample_count_queries(db, 512, seed=7)
+    want_wide = [w["queryResult"][0]["count"] for w in oracle(db, wide)]
+    engine = install_sharded(db, torch, "8a")
+    lowered = [engine.lower(Query(q).filter)[0] for q in wide]
+    sharded_kernels(engine, kernels, lowered, muts[0], err, timings)
+    with main.phase():
+        run_counts(db, counts64, want64, "8a counts")
+        t0 = time.perf_counter()
+        assert engine.count_programs(lowered) == want_wide
+        wide_s = time.perf_counter() - t0
+        log("8a wide", f"{len(wide)} queries in one count_programs call equal "
+            f"the host oracle; {wide_s * 1e3:.2f} ms ({len(wide) / wide_s:.0f} "
+            f"queries/s, lowering excluded)")
+        run_mutations(db, muts, want_muts, "8a mutations")
+        assert db._engine._use_device
+        assert kernels.VM_RUN_SHARDED.launches > 0
+        assert kernels.MUTATION_COUNTS_SHARDED.launches > 0
+    del engine
+    detach(db, torch)
+
+
+def phase8b(main: MainPath, kernels, torch, answers: dict) -> None:
+    """Phase 7's corpus and answers on the sharded engine: window-local pool
+    updates and densified blocks, the entry-split sparse Mutations."""
+    engine = install_sharded(answers["db"], torch, "8b")
+    assert engine.n_sparse > 0 and engine.pool_slots > 0, "tier not on"
+    torch.cuda.reset_peak_memory_stats()
+    two_tier_path(main, kernels, engine, answers, ("8b",) * 3)
+    for k in (kernels.VM_RUN_SHARDED, kernels.DENSIFY_INTO_POOL,
+              kernels.DENSIFY_ROWS, kernels.SPARSE_COUNTS):
+        assert k.launches > 0, f"{k.name} did not launch in 8b"
+    log("8b done", f"peak device memory over 8b "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k.name: k.launches for k in kernels.KERNELS} }")
+    del engine
+    detach(answers["db"], torch)
 
 
 def main() -> int:
@@ -493,16 +682,30 @@ def main() -> int:
     mut_ms = cuda_ms(lambda: kernels.mutation_counts(*mut_args), reps=20)
     mut_plain_ms = cuda_ms(lambda: kernels.mutation_counts_plain(*mut_args),
                            reps=3, warmup=1)
+    # popcount_rows_and_filter: every bank row against the same filter
+    rows_args = (engine.bank, mut_filter)
+    err["popcount_rows_and_filter"] = max(
+        err["popcount_rows_and_filter"], max_abs_err(
+            kernels.popcount_rows_and_filter(*rows_args),
+            kernels.popcount_rows_and_filter_plain(*rows_args)))
+    rows_ms = cuda_ms(lambda: kernels.popcount_rows_and_filter(*rows_args),
+                      reps=20)
+    rows_plain_ms = cuda_ms(
+        lambda: kernels.popcount_rows_and_filter_plain(*rows_args), reps=3,
+        warmup=1)
     log("3 kernels", f"main-path shapes bit-exact, max_abs_err {err}; vm_run "
         f"{len(on_device)} programs, {vm_inputs[1]} instructions, PW "
         f"{engine.n_flat_words}: kernel {vm_ms:.4f} ms, plain "
         f"{vm_plain_ms:.1f} ms; mutation_counts {meta['n_stored']} rows x "
         f"{engine.n_flat_words} words: kernel {mut_ms:.4f} ms "
         f"({meta['n_stored'] * engine.n_flat_words * 4 / mut_ms / 1e6:.0f} "
-        f"GB/s), plain {mut_plain_ms:.2f} ms")
+        f"GB/s), plain {mut_plain_ms:.2f} ms; popcount_rows_and_filter "
+        f"{engine.n_rows} rows: kernel {rows_ms:.4f} ms, plain "
+        f"{rows_plain_ms:.2f} ms")
     assert all(e == 0 for e in err.values()), err
     timings = {"vm_run": (vm_ms, vm_plain_ms),
-               "mutation_counts": (mut_ms, mut_plain_ms)}
+               "mutation_counts": (mut_ms, mut_plain_ms),
+               "popcount_rows_and_filter": (rows_ms, rows_plain_ms)}
 
     # 4: the main path at the bench default
     counts64 = sample_count_queries(db, 64, seed=1)
@@ -546,13 +749,20 @@ def main() -> int:
         run_counts(big, big_counts, big_want, "5a counts")
         run_mutations(big, big_muts, big_want_muts, "5c mutations")
         assert big._engine._use_device
-    del big, big_engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    del big_engine
+    detach(big, torch)
 
-    # 7: the two-tier deployment
-    phase7(main_path, kernels, torch, device, err, timings)
+    # 8a: the same corpus on the word-sharded engine
+    phase8a(main_path, kernels, torch, big, big_counts, big_want, big_muts,
+            big_want_muts, err, timings)
+    del big
+    gc.collect()
+
+    # 7: the two-tier deployment, then 8b: the same on the sharded engine
+    answers = phase7(main_path, kernels, torch, device, err, timings)
+    phase8b(main_path, kernels, torch, answers)
     assert all(e == 0 for e in err.values()), err
+    del answers
     gc.collect()
 
     # 6
@@ -561,7 +771,8 @@ def main() -> int:
     log("6 checks", f"main-path launches {main_path.launches}, plain-version "
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
-    assert all(main_path.launches.values()), main_path.launches
+    assert all(n for name, n in main_path.launches.items()
+               if name not in OFF_PATH), main_path.launches
     assert not any(main_path.plain.values()), main_path.plain
     assert sys.modules.get("jax") is None and not loaded, loaded
 

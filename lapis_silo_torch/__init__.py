@@ -11,6 +11,12 @@ the lowering, the two-tier device engine and the kernels (``csrc/``), and
     db = lapis_silo_tpu.testing.synthetic_database(...)   # or a snapshot
     install(db, torch.device("cuda"))
     db.execute_query('{"action": {"type": "Aggregated"}, ...}')
+
+With ``devices`` the engine shards the word axis over them, one shard per
+entry, in this process (``parallel/shards.py``):
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    install(db, cards[0], devices=cards)
 """
 
 from __future__ import annotations
@@ -21,11 +27,12 @@ from .ops.device_engine import DeviceEngine
 from .query.engine import QueryEngine
 
 
-def install(db, device: torch.device) -> DeviceEngine:
-    """Build the port's device engine for `db` on `device` and route
-    ``db.execute_query`` through it (the seam of
+def install(db, device: torch.device, devices=None) -> DeviceEngine:
+    """Build the port's device engine for `db` on `device`, or sharded over
+    `devices` (two or more, repeats allowed, `device` their first), and
+    route ``db.execute_query`` through it (the seam of
     ``lapis_silo_tpu/storage/database.py:98-104``)."""
-    engine = DeviceEngine(db, torch.device(device))
+    engine = DeviceEngine(db, torch.device(device), devices=devices)
     db.device_engine = engine
     with db._engine_lock:
         db._engine = QueryEngine(db, engine)

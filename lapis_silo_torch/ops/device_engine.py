@@ -34,6 +34,18 @@ watcher and the fast path):
 The engine launches on the device's default stream, whichever thread calls
 (the micro-batcher's or a caller's): a pool update may overwrite a slot that
 an earlier VM launch reads, and one stream runs them in order.
+
+With ``devices`` of two or more entries the engine shards the flat word axis
+over them, as the reference does over a Mesh of its local devices
+(device_engine.py:74-120; ``parallel/shards.py``): shard d holds the words
+[d*PW/D, (d+1)*PW/D) of the bank, the full masks, the dyn rows, the
+densified blocks and the pool, and n_words is padded to a multiple of D. The
+CSR stream is copied once to each distinct device. The VM and the dense
+Mutations run per shard (``kernels.vm_run_sharded``,
+``kernels.mutation_counts_sharded``), densify is window-local per shard, the
+sparse Mutations splits the stream's entries over the shards, and counts
+are summed on the primary device ``devices[0]``. Each shard launches on its
+device's default stream.
 """
 
 from __future__ import annotations
@@ -51,8 +63,11 @@ import torch
 
 from lapis_silo_tpu.ops import bitset
 
+from ..parallel.shards import (
+    ShardLayout, gather_words, reduce_sum, resolve, split_words,
+)
 from . import kernels, lowering
-from .reductions import popcount_words
+from .reductions import clip_bounds, entry_chunks, popcount_words
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
     M_MOVB, M_OR, M_XOR, MAX_BATCH_QUERIES, NO_DST, SERVE_LEN_BUCKET,
@@ -67,17 +82,31 @@ from .words import to_device, to_host
 @dataclass
 class BankState:
     """What the engine keeps resident: per-segment row layout, the dense
-    bank [R, PW] and the valid-sequence masks [PW] (int32 tensors), and with
-    the sparse tier on, its CSR stream (idx, words [E] int32 tensors) and
-    the per-(leaf, partition) bounds into it (host int64 [n_sparse, P])."""
+    bank and the valid-sequence masks as one word shard per device (banks
+    [R, PW/D], fulls [PW/D], int32 tensors; D = 1 on one device), and with
+    the sparse tier on, its CSR stream (idx, words [E] int32 tensors, on the
+    first shard's device) and the per-(leaf, partition) bounds into it (host
+    int64 [n_sparse, P])."""
 
     segment_meta: dict
-    bank: torch.Tensor
-    full_masks: torch.Tensor
+    banks: list
+    fulls: list
     sparse_idx: torch.Tensor | None = None
     sparse_words: torch.Tensor | None = None
     sparse_starts_pp: np.ndarray | None = None
     sparse_lengths_pp: np.ndarray | None = None
+
+    @property
+    def bank(self) -> torch.Tensor:
+        """The dense bank [R, PW] of a one-device state."""
+        (bank,) = self.banks
+        return bank
+
+    @property
+    def full_masks(self) -> torch.Tensor:
+        """The full masks [PW] of a one-device state."""
+        (full,) = self.fulls
+        return full
 
 
 class VmArgs(NamedTuple):
@@ -160,18 +189,24 @@ def _sparse_stream(partitions, segments, segment_meta, n_sparse: int,
 
 
 def build_state(database, device: torch.device,
-                sparse_min_words: int | None = None) -> BankState:
+                sparse_min_words: int | None = None,
+                devices=None) -> BankState:
     """The two-tier bank of `database` on `device`, laid out as the
-    reference's DeviceEngine does on one device without Pallas
-    (device_engine.py:123-414): per segment, every (symbol, position) row
-    present in some partition and not the global majority symbol at its
-    position, position-major, split between the dense bank and the sparse
-    tier. The tier is on when the all-dense bank would exceed the budget,
-    or, with `sparse_min_words` (tests), when the flat row has at least that
-    many words."""
+    reference's DeviceEngine does without Pallas (device_engine.py:123-414):
+    per segment, every (symbol, position) row present in some partition and
+    not the global majority symbol at its position, position-major, split
+    between the dense bank and the sparse tier. The tier is on when the
+    all-dense bank would exceed the budget, or, with `sparse_min_words`
+    (tests), when the flat row has at least that many words. With `devices`
+    (two or more) the words shard over them and n_words pads to a multiple
+    of their count (device_engine.py:84-85); the stream lies on
+    devices[0]."""
     partitions = database.partitions
     n_partitions = len(partitions)
     n_words = max(bitset.words_for(p.sequence_count) for p in partitions)
+    shard_devices = list(devices) if devices else [device]
+    n_words += -n_words % len(shard_devices)
+    layout = ShardLayout(shard_devices, n_partitions, n_words)
     flat_words = n_partitions * n_words
     segments = _segments(database)
     totals_by_segment = {}
@@ -234,8 +269,10 @@ def build_state(database, device: torch.device,
     n_rows = max(offset, 1)
 
     # filled one partition (one column band of the bank) at a time, so the
-    # host never holds more than [R, W] of it
-    bank = torch.zeros((n_rows, flat_words), dtype=torch.int32, device=device)
+    # host never holds more than [R, W] of it; each shard takes the part of
+    # the band inside its window
+    banks = [torch.zeros((n_rows, layout.local_words), dtype=torch.int32,
+                         device=shard) for shard in layout.devices]
     full = np.zeros((n_partitions, n_words), dtype=np.uint32)
     for pi, partition in enumerate(partitions):
         w = bitset.words_for(partition.sequence_count)
@@ -255,33 +292,45 @@ def build_state(database, device: torch.device,
             for j in np.nonzero(idx == -2)[0]:
                 band[start + j, :w] = seg.plane(
                     int(meta["sym_ids"][j]), int(meta["pos_ids"][j]))
-        bank[:, pi * n_words:(pi + 1) * n_words] = to_device(band, device)
+        for shard, (bank, lo) in enumerate(zip(banks, layout.offsets)):
+            a = max(lo, pi * n_words)
+            b = min(lo + layout.local_words, (pi + 1) * n_words)
+            if a < b:
+                bank[:, a - lo:b - lo] = to_device(
+                    band[:, a - pi * n_words:b - pi * n_words],
+                    layout.devices[shard])
         del band
-    state = BankState(segment_meta, bank, to_device(full.reshape(-1), device))
+    state = BankState(segment_meta, banks,
+                      split_words(full.reshape(-1), layout.devices))
     if n_sparse:
         idx, words, starts_pp, lens_pp = _sparse_stream(
             partitions, segments, segment_meta, n_sparse, n_words)
-        state.sparse_idx = to_device(idx, device)
-        state.sparse_words = to_device(words, device)
+        state.sparse_idx = to_device(idx, layout.devices[0])
+        state.sparse_words = to_device(words, layout.devices[0])
         state.sparse_starts_pp, state.sparse_lengths_pp = starts_pp, lens_pp
     return state
 
 
 def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
                          sparse_stream=None, sparse_starts_pp=None,
-                         sparse_lengths_pp=None) -> BankState:
+                         sparse_lengths_pp=None, devices=None) -> BankState:
     """The port's state from a JAX DeviceEngine's arrays (numpy or anything
-    np.asarray takes): its bank (2-D or the 3-D [R, PW/128, 128] form),
-    full_masks and segment_meta, and for a two-tier engine its combined
-    sparse stream (``sparse_stream[0]``), sparse_starts_pp and
-    sparse_lengths_pp. The combined stream's block interleave (per 1,024
-    entries: 8 rows of 128 indices, then 8 rows of 128 words) is undone here
-    and the stream trimmed to its live entries."""
+    np.asarray takes, so a mesh engine's arrays gather whole): its bank
+    (2-D or the 3-D [R, PW/128, 128] form), full_masks and segment_meta,
+    and for a two-tier engine its combined sparse stream
+    (``sparse_stream[0]``), sparse_starts_pp and sparse_lengths_pp. The
+    combined stream's block interleave (per 1,024 entries: 8 rows of 128
+    indices, then 8 rows of 128 words) is undone here and the stream trimmed
+    to its live entries. With `devices` (two or more) the words split into
+    one shard per device and the stream lies on devices[0]; the reference's
+    PW, padded as its own mesh padded it, must split evenly."""
     bank = np.asarray(bank)
+    shard_devices = list(devices) if devices else [device]
+    device = shard_devices[0]
     state = BankState(
         segment_meta,
-        to_device(bank.reshape(bank.shape[0], -1), device),
-        to_device(np.asarray(full_masks).reshape(-1), device))
+        split_words(bank.reshape(bank.shape[0], -1), shard_devices),
+        split_words(np.asarray(full_masks).reshape(-1), shard_devices))
     if not any(len(meta["sparse_sym_ids"]) for meta in segment_meta.values()):
         return state
     if sparse_stream is None or sparse_starts_pp is None \
@@ -299,9 +348,14 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
 
 
 class DeviceEngine:
+    """The port's device engine over one device, or with `devices` (two or
+    more, repeats allowed) sharded over them with devices[0] the primary:
+    `device` must then name devices[0]. A given `state` must have been built
+    for the same devices."""
+
     def __init__(self, database, device: torch.device,
                  state: BankState | None = None,
-                 sparse_min_words: int | None = None):
+                 sparse_min_words: int | None = None, devices=None):
         self.db = database
         self.device = torch.device(device)
         partitions = database.partitions
@@ -309,24 +363,55 @@ class DeviceEngine:
             raise NotImplementedError("empty database")
         self.n_partitions = len(partitions)
         self.part_rows = [p.sequence_count for p in partitions]
+        if devices is not None:
+            devices = [resolve(d) for d in devices]
+            if not devices or resolve(self.device) != devices[0]:
+                raise ValueError(f"device {self.device} is not the first "
+                                 f"of devices {devices}")
+        self.sharded = devices is not None and len(devices) > 1
+        if self.sharded:
+            self.device = devices[0]
+        else:
+            devices = [resolve(self.device)]
         if state is None:
-            state = build_state(database, self.device, sparse_min_words)
+            state = build_state(database, self.device, sparse_min_words,
+                                devices if self.sharded else None)
         self.segment_meta = state.segment_meta
-        self.bank = state.bank
-        self.full_masks = state.full_masks
-        self.n_rows = self.bank.shape[0]
-        self.n_flat_words = self.full_masks.shape[0]
+        self.banks = state.banks
+        self.fulls = state.fulls
+        self.n_rows = self.banks[0].shape[0]
+        self.n_flat_words = sum(full.shape[0] for full in self.fulls)
         self.n_words = self.n_flat_words // self.n_partitions
-        self._full_host = to_host(self.full_masks).reshape(
-            self.n_partitions, self.n_words)  # host_count interprets on it
+        self.shards = ShardLayout(devices, self.n_partitions, self.n_words)
+        for shard, (bank, full) in enumerate(zip(self.banks, self.fulls)):
+            if (len(self.banks) != len(self.shards)
+                    or full.device != self.shards.devices[shard]
+                    or bank.device != full.device
+                    or bank.shape != (self.n_rows, self.shards.local_words)):
+                raise ValueError("the state's shards do not match the "
+                                 "engine's devices")
+        # host_count interprets on it
+        self._full_host = self._gather_host(self.fulls).reshape(
+            self.n_partitions, self.n_words)
         self.sparse_idx = state.sparse_idx
         self.sparse_words = state.sparse_words
         self.sparse_starts_pp = state.sparse_starts_pp
         self.sparse_lengths_pp = state.sparse_lengths_pp
         self.n_sparse = sum(len(meta["sparse_sym_ids"])
                             for meta in self.segment_meta.values())
-        self._stream = (torch.cuda.default_stream(self.device)
-                        if self.device.type == "cuda" else None)
+        # the stream once on each distinct device (the reference replicates
+        # it over the mesh, device_engine.py:383-394)
+        self._stream_on = {}
+        if self.n_sparse:
+            self._stream_on = {
+                shard: (self.sparse_idx.to(shard), self.sparse_words.to(shard))
+                for shard in self.shards.distinct}
+        # every shard device's default stream, the primary's entered last so
+        # that it is the current device inside _on_stream
+        self._cuda_streams = (
+            [torch.cuda.default_stream(shard)
+             for shard in self.shards.distinct[1:] + self.shards.distinct[:1]]
+            if self.device.type == "cuda" else [])
 
         # ingest-time row cardinalities (the reference's stored-cardinality
         # fast path): single-leaf counts need no device work at all
@@ -344,9 +429,23 @@ class DeviceEngine:
                     meta["sparse_base"]: meta["sparse_base"] + n_seg_sparse
                 ] = meta["totals"][meta["sparse_sym_ids"],
                                    meta["sparse_pos_ids"]]
-        # the Mutations reduction's bounds, resident: (starts, lens)
-        self._sparse_bounds = (self._bounds_on_device(self._bounds(
-            np.arange(self.n_sparse))) if self.n_sparse else None)
+        # the Mutations reduction's stream chunks, resident: (idx, words,
+        # starts, lens) per shard. One device reduces the whole stream; the
+        # shards split its entries, each chunk's bounds clipped to it
+        # (reductions.py:99-146)
+        self._sparse_chunks: list[tuple] = []
+        if self.n_sparse and not self.sharded:
+            self._sparse_chunks = [(self.sparse_idx, self.sparse_words,
+                                    *self._bounds_on_device(self._bounds(
+                                        np.arange(self.n_sparse))))]
+        elif self.n_sparse:
+            for shard, (lo, hi) in zip(self.shards.devices, entry_chunks(
+                    self.sparse_idx.shape[0], len(self.shards))):
+                idx, words = self._stream_on[shard]
+                self._sparse_chunks.append((idx[lo:hi], words[lo:hi], *(
+                    torch.from_numpy(a.astype(np.int32)).to(shard)
+                    for a in clip_bounds(self.sparse_starts_pp,
+                                         self.sparse_lengths_pp, lo, hi))))
         self._sparse_counts_memo: tuple | None = None
 
         # the reference's caps (device_engine.py:424-431, 560-564): the
@@ -384,9 +483,10 @@ class DeviceEngine:
         self.pool_misses = 0
         self.pool_update_dispatches = 0
 
-        self._sparse_zero = torch.zeros((1, self.n_flat_words),
-                                        dtype=torch.int32, device=self.device)
-        self._zero_dyn_cache: dict[int, torch.Tensor] = {}
+        self._sparse_zero = [
+            torch.zeros((1, self.shards.local_words), dtype=torch.int32,
+                        device=shard) for shard in self.shards.devices]
+        self._zero_dyn_cache: dict[int, list] = {}
         self._filters_memo: tuple | None = None
         self._lower_lock = threading.Lock()
         self._batcher: _MicroBatcher | None = None
@@ -394,10 +494,34 @@ class DeviceEngine:
         self._program_memo_lock = threading.Lock()
 
     def _on_stream(self):
-        """The engine's stream as the current one (no-op off CUDA)."""
-        if self._stream is None:
+        """The engine's streams as the current ones: each shard device's
+        default stream (no-op off CUDA)."""
+        if not self._cuda_streams:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        if len(self._cuda_streams) == 1:
+            return torch.cuda.stream(self._cuda_streams[0])
+        stack = contextlib.ExitStack()
+        for stream in self._cuda_streams:
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    @property
+    def bank(self) -> torch.Tensor:
+        """The dense bank [R, PW] of a one-device engine."""
+        (bank,) = self.banks
+        return bank
+
+    @property
+    def full_masks(self) -> torch.Tensor:
+        """The full masks [PW] of a one-device engine."""
+        (full,) = self.fulls
+        return full
+
+    def _gather_host(self, parts: list) -> np.ndarray:
+        """Per-shard words [..., PW/D] -> host uint32 words [..., PW]."""
+        if len(parts) == 1:
+            return to_host(parts[0])
+        return to_host(gather_words(parts, "cpu"))
 
     # -- hot-leaf pool ------------------------------------------------------
 
@@ -405,32 +529,36 @@ class DeviceEngine:
         """The reference's pool sizing (device_engine.py:483-531), without
         its bank3 condition: SILO_LEAF_POOL_GB, else what the dense-bank
         budget leaves beside the bank and the stream, less 2 GiB of
-        headroom, at most 6 GiB and none below 1 GiB; one slot per PW words,
-        at most 8,192 and the leaf count, none below 64 or with
-        SILO_LEAF_POOL=0."""
+        headroom, at most 6 GiB and none below 1 GiB; one slot per PW/D
+        words, at most 8,192 and the leaf count, none below 64 or with
+        SILO_LEAF_POOL=0. Per device, as the reference accounts a mesh
+        (device_engine.py:496-517): the bank and the pool shard, the stream
+        is whole on every device."""
         env_pool_gb = os.environ.get("SILO_LEAF_POOL_GB")
         if env_pool_gb is not None:
             pool_budget = float(env_pool_gb) * 2**30
         else:
             budget_bytes = int(float(os.environ.get(
                 "SILO_DENSE_BANK_BUDGET_GB", SPARSE_BANK_BUDGET_GB)) * 2**30)
-            bank_bytes = 4 * self.n_rows * self.n_flat_words
+            bank_bytes = 4 * self.n_rows * self.shards.local_words
             stream_bytes = (8 * self.sparse_idx.shape[0]
                             if self.sparse_idx is not None else 0)
             free = budget_bytes - bank_bytes - stream_bytes
             pool_budget = min(6 * 2**30, free - 2 * 2**30)
             if pool_budget < 1 * 2**30:
                 pool_budget = 0
-        want_slots = int(pool_budget // (4 * self.n_flat_words))
+        want_slots = int(pool_budget // (4 * self.shards.local_words))
         if (self.n_sparse > 0 and os.environ.get("SILO_LEAF_POOL", "1") != "0"
                 and want_slots >= 64):
             return min(want_slots, self.n_sparse, 8192)
         return 0
 
-    def _alloc_pool(self) -> torch.Tensor:
-        """The zeroed [C + 1, PW] pool."""
-        return torch.zeros((self.pool_slots + 1, self.n_flat_words),
-                           dtype=torch.int32, device=self.device)
+    def _alloc_pool(self) -> list[torch.Tensor]:
+        """The zeroed pool, one [C + 1, PW/D] word shard per device (slot c
+        is row c of every shard)."""
+        return [torch.zeros((self.pool_slots + 1, self.shards.local_words),
+                            dtype=torch.int32, device=shard)
+                for shard in self.shards.devices]
 
     def _plan_residency(self, leaf_ids: list[int]):
         """Slot-assign every leaf (SLRU bookkeeping) and return (leaf id ->
@@ -509,12 +637,14 @@ class DeviceEngine:
 
     def _eager_update_chunks(self, chunks) -> None:
         """Densify each update chunk into its pool slots, one launch per
-        chunk. Caller holds _pool_lock and drops the pool on failure."""
+        chunk and shard, each shard writing its own window. Caller holds
+        _pool_lock and drops the pool on failure."""
         for ids, slots in chunks:
-            starts, lens = self._bounds_on_device(self._bounds(ids))
-            kernels.densify_rows_into_pool(
-                self.leaf_pool, self.sparse_idx, self.sparse_words, starts,
-                lens, slots)
+            bounds = self._bounds(ids)
+            for shard, pool in enumerate(self.leaf_pool):
+                kernels.densify_rows_into_pool(
+                    pool, *self._window_stream(bounds, shard), slots,
+                    self.shards.offsets[shard])
             self.pool_update_dispatches += 1
 
     def warm_pool_updates(self):
@@ -551,10 +681,24 @@ class DeviceEngine:
         return np.stack([self.sparse_starts_pp[ids],
                          self.sparse_lengths_pp[ids]])
 
-    def _bounds_on_device(self, bounds: np.ndarray):
-        """(starts, lens) [K, P] int32 on the device, in one upload."""
-        both = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
+    def _bounds_on_device(self, bounds: np.ndarray, device=None):
+        """(starts, lens) [K, P] int32 on the device (or `device`), in one
+        upload."""
+        both = torch.from_numpy(bounds.astype(np.int32)).to(
+            self.device if device is None else device)
         return both[0], both[1]
+
+    def _window_stream(self, bounds: np.ndarray, shard: int) -> tuple:
+        """(idx, words, starts, lens) on the shard's device for a densify
+        of the leaves with `bounds` [2, K, P] into the shard's window: only
+        the segments of the partitions that overlap the window (one device:
+        all of them)."""
+        device = self.shards.devices[shard]
+        p_lo, p_hi = self.shards.partitions(shard)
+        if p_hi - p_lo < self.n_partitions:
+            bounds = np.ascontiguousarray(bounds[:, :, p_lo:p_hi])
+        return (*self._stream_on[device],
+                *self._bounds_on_device(bounds, device))
 
     def _assemble_sparse(self, sparse_leaves: list[int]) -> np.ndarray:
         """The bounds of a poolless launch's leaves, with the reference's
@@ -570,12 +714,13 @@ class DeviceEngine:
             raise ProgramTooLarge("sparse stream offsets exceed int32")
         return bounds
 
-    def _densified(self, sparse_leaves: list[int]) -> torch.Tensor:
-        """[K, PW] densified rows of the leaves, in their order."""
-        starts, lens = self._bounds_on_device(
-            self._assemble_sparse(sparse_leaves))
-        return kernels.densify_rows(self.sparse_idx, self.sparse_words,
-                                    starts, lens, self.n_flat_words)
+    def _densified(self, sparse_leaves: list[int]) -> list[torch.Tensor]:
+        """[K, PW/D] densified rows of the leaves, in their order, per
+        shard."""
+        bounds = self._assemble_sparse(sparse_leaves)
+        return [kernels.densify_rows(*self._window_stream(bounds, shard),
+                                     self.shards.local_words, w_off)
+                for shard, w_off in enumerate(self.shards.offsets)]
 
     # -- lowering -----------------------------------------------------------
 
@@ -670,14 +815,16 @@ class DeviceEngine:
         return VmArgs(code, _round_instr(len(flat_ops)), dyn_rows, n_dyn,
                       n_regs, sparse_leaves)
 
-    def _dyn_tensor(self, dyn_rows: list, n_dyn: int) -> torch.Tensor:
-        """[n_dyn, PW] dyn rows on the device (a cached zero block when the
-        program has none: data-free queries upload only their code)."""
+    def _dyn_tensor(self, dyn_rows: list, n_dyn: int) -> list[torch.Tensor]:
+        """[n_dyn, PW/D] dyn rows per shard on its device (a cached zero
+        block when the program has none: data-free queries upload only
+        their code)."""
         if not dyn_rows:
             cached = self._zero_dyn_cache.get(n_dyn)
             if cached is None:
-                cached = torch.zeros((n_dyn, self.n_flat_words),
-                                     dtype=torch.int32, device=self.device)
+                cached = [torch.zeros((n_dyn, self.shards.local_words),
+                                      dtype=torch.int32, device=shard)
+                          for shard in self.shards.devices]
                 self._zero_dyn_cache[n_dyn] = cached
             return cached
         dyn = np.zeros((n_dyn, self.n_partitions, self.n_words),
@@ -685,29 +832,45 @@ class DeviceEngine:
         for di, rows in enumerate(dyn_rows):
             for pi, row in enumerate(rows):
                 dyn[di, pi] = row
-        return to_device(dyn.reshape(n_dyn, self.n_flat_words), self.device)
+        return split_words(dyn.reshape(n_dyn, self.n_flat_words),
+                            self.shards.devices)
 
-    def kernel_inputs(self, args: VmArgs,
-                      sparse_rows: torch.Tensor | None = None) -> tuple:
-        """The positional arguments of kernels.vm_run for one launch: the
-        code block's first n_instr columns, the dyn rows uploaded, and the
-        rows B_SPARSE operands read (one zero row for programs without
-        sparse leaves)."""
+    def kernel_inputs(self, args: VmArgs, sparse_rows: list | None = None,
+                      ) -> tuple:
+        """The positional arguments of kernels.vm_run (one device) or of
+        kernels.vm_run_sharded for one launch: the code block's first
+        n_instr columns, the dyn rows uploaded, and the rows B_SPARSE
+        operands read (`sparse_rows`, one tensor per shard; one zero row for
+        programs without sparse leaves)."""
         code = torch.from_numpy(np.ascontiguousarray(args.code[:, :args.n_instr]))
-        return (code.to(self.device), args.n_instr, self.bank,
-                self._dyn_tensor(args.dyn_rows, args.n_dyn),
-                self._sparse_zero if sparse_rows is None else sparse_rows,
-                self.full_masks, args.n_regs)
+        dyns = self._dyn_tensor(args.dyn_rows, args.n_dyn)
+        rows = self._sparse_zero if sparse_rows is None else sparse_rows
+        if self.sharded:
+            return (code, args.n_instr, self.banks, dyns, rows, self.fulls,
+                    args.n_regs)
+        return (code.to(self.device), args.n_instr, self.banks[0], dyns[0],
+                rows[0], self.fulls[0], args.n_regs)
+
+    def _vm(self, args: VmArgs, sparse_rows: list | None = None,
+            ) -> tuple[list, torch.Tensor]:
+        """One VM launch: (reg[0] words per shard, counts [4096] on the
+        primary device)."""
+        inputs = self.kernel_inputs(args, sparse_rows)
+        if self.sharded:
+            return kernels.vm_run_sharded(*inputs)
+        words, counts = kernels.vm_run(*inputs)
+        return [words], counts
 
     def _run(self, args: VmArgs,
-             use_pool: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-        """One VM launch on the engine's stream. With sparse leaves, the VM
+             use_pool: bool = True) -> tuple[list, torch.Tensor]:
+        """One VM launch on the engine's streams. With sparse leaves, the VM
         reads the hot-leaf pool (misses densified into their slots first,
         all under _pool_lock) or, without the pool or with `use_pool` off,
-        a [K, PW] block densified for this launch."""
+        a [K, PW] block densified for this launch. Returns (reg[0] words per
+        shard, counts)."""
         with self._on_stream():
             if not args.sparse_leaves:
-                return kernels.vm_run(*self.kernel_inputs(args))
+                return self._vm(args)
             if self.pool_slots and use_pool:
                 with self._pool_lock:
                     slot_map, chunks = self._plan_residency(args.sparse_leaves)
@@ -715,30 +878,30 @@ class DeviceEngine:
                         args.code, args.sparse_leaves, slot_map)
                     try:
                         self._eager_update_chunks(chunks)
-                        return kernels.vm_run(*self.kernel_inputs(
-                            args._replace(code=code), self.leaf_pool))
+                        return self._vm(args._replace(code=code),
+                                        self.leaf_pool)
                     except Exception:
                         self._drop_pool()
                         raise
-            rows = self._densified(args.sparse_leaves)
-            return kernels.vm_run(*self.kernel_inputs(args, rows))
+            return self._vm(args, self._densified(args.sparse_leaves))
 
     # -- filters ----------------------------------------------------------------
 
-    def _trivial_words(self, program: _Program) -> torch.Tensor | None:
+    def _trivial_words(self, program: _Program) -> list | None:
         """The words of a single full/empty load, which needs no launch."""
         if len(program.opcodes) == 1 and program.opcodes[0] == ALU:
             spec = program.regspec[0]
             if (spec >> 24) & 0xF == M_MOVB:
                 if (spec >> 28) & 0xF == B_FULL:
-                    return self.full_masks
+                    return self.fulls
                 if (spec >> 28) & 0xF == B_ZERO:
-                    return self._dyn_tensor([], 1)[0]
+                    return [zero[0] for zero in self._dyn_tensor([], 1)]
         return None
 
-    def evaluate_device(self, filter_expr) -> torch.Tensor:
-        """The FLAT [PW] global-word filter bitset on the device (partition
-        p's words live at [p*W, (p+1)*W))."""
+    def evaluate_device(self, filter_expr) -> list[torch.Tensor]:
+        """The FLAT global-word filter bitset on the devices (partition p's
+        words live at [p*W, (p+1)*W)): [PW/D] words per shard, one [PW]
+        tensor on one device."""
         program, _regs = self.lower(filter_expr)
         trivial = self._trivial_words(program)
         if trivial is not None:
@@ -748,7 +911,7 @@ class DeviceEngine:
 
     def evaluate(self, filter_expr) -> list[np.ndarray]:
         """Per-partition packed bitsets (host numpy, trimmed)."""
-        host = to_host(self.evaluate_device(filter_expr)).reshape(
+        host = self._gather_host(self.evaluate_device(filter_expr)).reshape(
             self.n_partitions, self.n_words)
         return [
             host[pi, : bitset.words_for(n)] for pi, n in enumerate(self.part_rows)
@@ -771,12 +934,14 @@ class DeviceEngine:
     # -- counts -------------------------------------------------------------------
 
     def count_async(self, filter_expr, program: _Program | None = None) -> torch.Tensor:
-        """Filter + popcount on the device without blocking: a 0-d tensor."""
+        """Filter + popcount on the device without blocking: a 0-d tensor
+        on the primary device."""
         if program is None:
             program = self.lower(filter_expr)[0]
         words, _counts = self._run(self._prepare_program(program))
         with self._on_stream():
-            return popcount_words(words)
+            return reduce_sum([popcount_words(part) for part in words],
+                              self.device)
 
     def count(self, filter_expr) -> int:
         """One count: host-answerable programs need no device work."""
@@ -977,12 +1142,12 @@ class DeviceEngine:
 
     # -- Mutations ------------------------------------------------------------------
 
-    def _filters_for(self, filter_words) -> torch.Tensor:
-        """Device [PW] flat filter for a host word list or DeviceFilter
-        (memoized by identity: one Mutations query reduces every segment
-        against the same filter)."""
+    def _filters_for(self, filter_words) -> list[torch.Tensor]:
+        """The flat filter, [PW/D] words per shard on its device, for a host
+        word list or DeviceFilter (memoized by identity: one Mutations query
+        reduces every segment against the same filter)."""
         if isinstance(filter_words, DeviceFilter):
-            return filter_words.words
+            return filter_words.parts
         key = tuple(id(w) for w in filter_words)
         memo = self._filters_memo
         if memo is not None and memo[0] == key:
@@ -990,7 +1155,8 @@ class DeviceEngine:
         dyn = np.zeros((self.n_partitions, self.n_words), dtype=np.uint32)
         for pi, words in enumerate(filter_words):
             dyn[pi, : len(words)] = words
-        filters = to_device(dyn.reshape(self.n_flat_words), self.device)
+        filters = split_words(dyn.reshape(self.n_flat_words),
+                               self.shards.devices)
         # hold a reference to the keyed arrays so ids stay valid
         self._filters_memo = (key, list(filter_words), filters)
         return filters
@@ -998,17 +1164,26 @@ class DeviceEngine:
     def _sparse_counts(self, filter_words) -> np.ndarray:
         """int64[n_sparse]: popcount(row & filter) for every sparse-tier row
         (all segments) in ONE launch of the sparse-counts kernel over the
-        stream (memoized per filter, as the reference does)."""
+        stream, or one per shard over its entry chunk against the whole
+        filter on its device (memoized per filter, as the reference
+        does)."""
         key = (id(filter_words) if isinstance(filter_words, DeviceFilter)
                else tuple(id(w) for w in filter_words))
         memo = self._sparse_counts_memo
         if memo is not None and memo[0] == key:
             return memo[2]
+        filters = self._filters_for(filter_words)
         with self._on_stream():
-            counts = kernels.sparse_counts(
-                self.sparse_idx, self.sparse_words,
-                self._filters_for(filter_words), self._sparse_bounds[0],
-                self._sparse_bounds[1])
+            if self.sharded:
+                whole = {shard: gather_words(filters, shard)
+                         for shard in self.shards.distinct}
+                counts = kernels.sparse_counts_chunked(
+                    self._sparse_chunks,
+                    [whole[shard] for shard in self.shards.devices])
+            else:
+                idx, words, starts, lens = self._sparse_chunks[0]
+                counts = kernels.sparse_counts(idx, words, filters[0], starts,
+                                               lens)
             out = counts.cpu().numpy().astype(np.int64)
         self._sparse_counts_memo = (key, filter_words, out)
         return out
@@ -1044,9 +1219,13 @@ class DeviceEngine:
                         (meta["s_count"], meta["length"]), dtype=np.int64)
                     continue
                 dev = None
-                if meta["n_stored"]:
+                if meta["n_stored"] and self.sharded:
+                    dev = kernels.mutation_counts_sharded(
+                        self.banks, self._filters_for(filter_words),
+                        meta["offset"], meta["n_stored"])
+                elif meta["n_stored"]:
                     dev = kernels.mutation_counts(
-                        self.bank, self._filters_for(filter_words),
+                        self.banks[0], self._filters_for(filter_words)[0],
                         meta["offset"], meta["n_stored"])
                 need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
                 pending.append((name, meta, dev))
@@ -1074,18 +1253,29 @@ class DeviceEngine:
 
 
 class DeviceFilter:
-    """A filter result resident on the device: FLAT [PW] global words and a
-    lazy popcount. Accepted by mutation_counts in place of host word lists."""
+    """A filter result resident on the device: the FLAT global words as
+    [PW/D] parts, one per shard, and a lazy popcount summed over them.
+    Accepted by mutation_counts in place of host word lists."""
 
-    def __init__(self, engine: DeviceEngine, words: torch.Tensor):
+    def __init__(self, engine: DeviceEngine, parts: list[torch.Tensor]):
         self.engine = engine
-        self.words = words
+        self.parts = parts
         self._popcount: int | None = None
+
+    @property
+    def words(self) -> torch.Tensor:
+        """The flat [PW] words on the primary device (gathered from the
+        shards of a sharded engine)."""
+        if len(self.parts) == 1:
+            return self.parts[0]
+        return gather_words(self.parts, self.engine.device)
 
     def popcount(self) -> int:
         if self._popcount is None:
             with self.engine._on_stream():
-                self._popcount = int(popcount_words(self.words))
+                self._popcount = int(reduce_sum(
+                    [popcount_words(part) for part in self.parts],
+                    self.engine.device))
         return self._popcount
 
 

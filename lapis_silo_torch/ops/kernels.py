@@ -2,7 +2,8 @@
 
 Five kernels carry the count and Mutations paths over both tiers of the
 bank, each in ``csrc/`` (TPU kernels in
-``lapis_silo_tpu/ops/pallas_kernels.py``):
+``lapis_silo_tpu/ops/pallas_kernels.py``), and three wrappers launch them in
+the forms the TPU package wrote as kernels of their own:
 
 - ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing ``:526``
   ``vm_run``;
@@ -16,7 +17,14 @@ bank, each in ``csrc/`` (TPU kernels in
   ``[K, PW]``, replacing ``:850`` ``densify_rows``;
 - ``densify_rows_into_pool`` (``csrc/densify.cu``): the same, written in
   place into rows of the hot-leaf pool, replacing ``:1252``
-  ``densify_rows_into_pool``.
+  ``densify_rows_into_pool``. Both densify kernels take a word window, so a
+  word shard builds only its own words;
+- ``vm_run_sharded`` and ``mutation_counts_sharded``: K1 and K2 on every
+  word shard of a sharded engine, then the shards' counts summed on the
+  first shard's device, replacing ``:741`` ``vm_run_sharded`` and ``:777``
+  ``mutation_counts_banked_sharded``;
+- ``popcount_rows_and_filter``: K2 over every row of a row block, replacing
+  ``:104`` ``popcount_rows_and_filter`` (no engine path calls it).
 
 At first use each source is compiled with its own ``nvcc`` (all started
 together) for ``sm_90a`` and the objects are linked into one shared library
@@ -42,6 +50,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.shards import reduce_sum
 from . import reductions
 from .vm import (
     B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, EMIT_COUNT, M_AND, M_MOVB, M_OR,
@@ -85,8 +94,15 @@ SPARSE_COUNTS = KernelCounts("sparse_counts",
 DENSIFY_ROWS = KernelCounts("densify_rows", "lapis_silo_torch/csrc/densify.cu")
 DENSIFY_INTO_POOL = KernelCounts("densify_rows_into_pool",
                                  "lapis_silo_torch/csrc/densify.cu")
+VM_RUN_SHARDED = KernelCounts("vm_run_sharded",
+                              "lapis_silo_torch/csrc/vm_run.cu")
+MUTATION_COUNTS_SHARDED = KernelCounts(
+    "mutation_counts_sharded", "lapis_silo_torch/csrc/mutation_counts.cu")
+POPCOUNT_ROWS = KernelCounts("popcount_rows_and_filter",
+                             "lapis_silo_torch/csrc/mutation_counts.cu")
 KERNELS = (VM_RUN, MUTATION_COUNTS, SPARSE_COUNTS, DENSIFY_ROWS,
-           DENSIFY_INTO_POOL)
+           DENSIFY_INTO_POOL, VM_RUN_SHARDED, MUTATION_COUNTS_SHARDED,
+           POPCOUNT_ROWS)
 
 
 def reset_counts() -> None:
@@ -107,9 +123,10 @@ _SIGNATURES = {
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
                             _P],
-    "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P],
+    "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P,
+                           _P],
     "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
-                                     _P, _P, _P],
+                                     _I64, _P, _P, _P],
 }
 
 
@@ -311,6 +328,56 @@ def vm_run_plain(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
     return regs[0].clone(), counts
 
 
+def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
+    """The shards' devices, those of `tensors` (the kernel wrapper each
+    shard runs checks the rest of its inputs); one list entry per shard in
+    every argument, and one device type across the shards."""
+    if not tensors or any(len(arg) != len(tensors) for arg in per_shard):
+        raise ValueError("one entry per shard in every shard list")
+    devices = [tensor.device for tensor in tensors]
+    if len({device.type for device in devices}) > 1:
+        raise ValueError(f"shards mix device types: {devices}")
+    return devices
+
+
+def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
+                   dyns: list, sparse_rows: list, fulls: list,
+                   n_regs: int) -> tuple[list, torch.Tensor]:
+    """vm_run on every word shard: shard d's bank [R, PW/D], dyn rows, sparse
+    rows and full mask lie on its device, and K1 runs there on that device's
+    current stream (the VM is word-local). `code` is copied once to each
+    distinct device. Every shard's EMIT counts hold the popcount of its own
+    words at a query's last EMIT, so their sum, taken on the first shard's
+    device, is the global count (the psum of pallas_kernels.py:763).
+    Returns (reg[0] words per shard, counts [4096] int32)."""
+    devices = _shard_devices(fulls, banks, dyns, sparse_rows)
+    codes = {device: code.to(device) for device in dict.fromkeys(devices)}
+    words, counts = [], []
+    for device, bank, dyn, rows, full in zip(devices, banks, dyns,
+                                             sparse_rows, fulls):
+        shard_words, shard_counts = vm_run(codes[device], n_instr, bank, dyn,
+                                           rows, full, n_regs)
+        words.append(shard_words)
+        counts.append(shard_counts)
+    VM_RUN_SHARDED.add(plain=devices[0].type == "cpu")
+    return words, reduce_sum(counts, devices[0])
+
+
+def vm_run_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
+                         dyns: list, sparse_rows: list, fulls: list,
+                         n_regs: int) -> tuple[list, torch.Tensor]:
+    """The plain PyTorch version of vm_run_sharded: vm_run_plain per shard
+    and the same sum."""
+    devices = _shard_devices(fulls, banks, dyns, sparse_rows)
+    VM_RUN_SHARDED.add(plain=True)
+    outs = [vm_run_plain(code.to(device), n_instr, bank, dyn, rows, full,
+                         n_regs)
+            for device, bank, dyn, rows, full in zip(devices, banks, dyns,
+                                                     sparse_rows, fulls)]
+    return ([words for words, _ in outs],
+            reduce_sum([counts for _, counts in outs], devices[0]))
+
+
 # -- K2: the Mutations reduction --------------------------------------------
 
 def mutation_counts(bank: torch.Tensor, filters: torch.Tensor, start: int,
@@ -344,6 +411,45 @@ def mutation_counts_plain(bank: torch.Tensor, filters: torch.Tensor,
     """The plain PyTorch version of mutation_counts (ops/reductions.py)."""
     MUTATION_COUNTS.add(plain=True)
     return reductions.mutation_counts(bank, filters, start, n_rows)
+
+
+def mutation_counts_sharded(banks: list, filters: list, start: int,
+                            n_rows: int) -> torch.Tensor:
+    """mutation_counts on every word shard (bank [R, PW/D] and filter
+    [PW/D] on the shard's device), the per-row counts summed on the first
+    shard's device (pallas_kernels.py:777-798): int32[n_rows]."""
+    devices = _shard_devices(filters, banks)
+    counts = [mutation_counts(bank, filt, start, n_rows)
+              for bank, filt in zip(banks, filters)]
+    MUTATION_COUNTS_SHARDED.add(plain=devices[0].type == "cpu")
+    return reduce_sum(counts, devices[0])
+
+
+def mutation_counts_sharded_plain(banks: list, filters: list, start: int,
+                                  n_rows: int) -> torch.Tensor:
+    """The plain PyTorch version of mutation_counts_sharded."""
+    devices = _shard_devices(filters, banks)
+    MUTATION_COUNTS_SHARDED.add(plain=True)
+    return reduce_sum([mutation_counts_plain(bank, filt, start, n_rows)
+                       for bank, filt in zip(banks, filters)], devices[0])
+
+
+def popcount_rows_and_filter(rows: torch.Tensor,
+                             filt: torch.Tensor) -> torch.Tensor:
+    """counts[i] = popcount(rows[i] & filt) for every row of rows [R, W]:
+    K2 over all rows (start 0), int32[R]. It replaces
+    popcount_rows_and_filter (pallas_kernels.py:104), whose ROW_BLOCK /
+    WORD_BLOCK padding the kernel does not need."""
+    out = mutation_counts(rows, filt, 0, rows.shape[0])
+    POPCOUNT_ROWS.add(plain=rows.device.type == "cpu")
+    return out
+
+
+def popcount_rows_and_filter_plain(rows: torch.Tensor,
+                                   filt: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of popcount_rows_and_filter."""
+    POPCOUNT_ROWS.add(plain=True)
+    return reductions.mutation_counts(rows, filt, 0, rows.shape[0])
 
 
 # -- K3: the sparse-tier Mutations reduction --------------------------------
@@ -394,19 +500,40 @@ def sparse_counts_plain(idx: torch.Tensor, words: torch.Tensor,
     return reductions.sparse_counts(idx, words, filters, starts, lens)
 
 
+def sparse_counts_chunked(chunks: list, filters: list) -> torch.Tensor:
+    """sparse_counts over a stream split into entry chunks, one per shard
+    (the entry split of reductions.py:99-146): chunk d is (idx, words,
+    starts, lens) on shard d's device, its bounds clipped to the chunk
+    (reductions.clip_bounds), and filters[d] the WHOLE filter [PW] on that
+    device. Every entry lies in one chunk, so the per-leaf sums of the
+    chunks, taken on the first chunk's device, are the stream's counts:
+    int32[L]."""
+    devices = _shard_devices(filters, chunks)
+    return reduce_sum([sparse_counts(idx, words, filt, starts, lens)
+                       for (idx, words, starts, lens), filt
+                       in zip(chunks, filters)], devices[0])
+
+
 # -- K4 and K5: densify sparse leaves ---------------------------------------
 
-def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
-                 lens: torch.Tensor, pw: int) -> torch.Tensor:
-    """[K, pw] int32 rows: row k is zero except at the entries of leaf k's
-    segments (starts/lens [K, P]), where row[idx[e]] = words[e]. Entries
-    past the stream or with idx outside [0, pw) are skipped."""
-    device = idx.device
-    _check_stream(idx, words, starts, lens, device)
+def _check_window(pw: int, w_off: int) -> None:
     if pw < 1:
         raise ValueError(f"pw {pw} < 1")
+    if w_off < 0:
+        raise ValueError(f"w_off {w_off} < 0")
+
+
+def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
+                 lens: torch.Tensor, pw: int, w_off: int = 0) -> torch.Tensor:
+    """[K, pw] int32 rows over the global words [w_off, w_off + pw): row k
+    is zero except at the entries of leaf k's segments (starts/lens [K, P])
+    whose index lies in that window, where row[idx[e] - w_off] = words[e].
+    Entries past the stream or outside the window are skipped."""
+    device = idx.device
+    _check_stream(idx, words, starts, lens, device)
+    _check_window(pw, w_off)
     if device.type == "cpu":
-        return densify_rows_plain(idx, words, starts, lens, pw)
+        return densify_rows_plain(idx, words, starts, lens, pw, w_off)
     if device.type != "cuda":
         raise ValueError(f"densify_rows: no kernel for device {device}")
     lib = load_library()
@@ -414,7 +541,7 @@ def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
     with torch.cuda.device(device):
         err = lib.lapis_densify_rows(
             idx.data_ptr(), words.data_ptr(), starts.data_ptr(),
-            lens.data_ptr(), starts.shape[0], starts.shape[1], pw,
+            lens.data_ptr(), starts.shape[0], starts.shape[1], pw, w_off,
             idx.shape[0], out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "densify_rows")
@@ -424,13 +551,15 @@ def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
 
 def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
                            words: torch.Tensor, starts: torch.Tensor,
-                           lens: torch.Tensor, slots) -> None:
-    """densify_rows with leaf k written in place into pool row slots[k]
-    (pool [C + 1, PW] int32); every other pool row stays as it was.
-    `slots` (K ints, on the host) must be distinct rows of the pool."""
+                           lens: torch.Tensor, slots, w_off: int = 0) -> None:
+    """densify_rows over the window of pool [C + 1, pw] int32 at `w_off`,
+    with leaf k written in place into pool row slots[k]; every other pool
+    row stays as it was. `slots` (K ints, on the host) must be distinct rows
+    of the pool."""
     device = pool.device
     _check("pool", pool, device, (None, None))
     _check_stream(idx, words, starts, lens, device)
+    _check_window(pool.shape[1], w_off)
     slots = torch.as_tensor(slots, dtype=torch.int32).reshape(-1)
     if slots.shape[0] != starts.shape[0]:
         raise ValueError(f"{slots.shape[0]} slots for {starts.shape[0]} leaves")
@@ -440,7 +569,8 @@ def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
     if torch.unique(slots).numel() != slots.numel():
         raise ValueError("slots of one launch must be distinct")
     if device.type == "cpu":
-        densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots)
+        densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots,
+                                     w_off)
         return
     if device.type != "cuda":
         raise ValueError(f"densify_rows_into_pool: no kernel for device {device}")
@@ -450,15 +580,16 @@ def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
         err = lib.lapis_densify_rows_into_pool(
             idx.data_ptr(), words.data_ptr(), starts.data_ptr(),
             lens.data_ptr(), starts.shape[0], starts.shape[1], pool.shape[1],
-            idx.shape[0], slots.data_ptr(), pool.data_ptr(),
+            w_off, idx.shape[0], slots.data_ptr(), pool.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "densify_rows_into_pool")
     DENSIFY_INTO_POOL.add()
 
 
-def _densify(idx, words, starts, lens, pw) -> torch.Tensor:
-    """The densified rows [K, pw]: torch.zeros, then one index assignment
-    of every leaf's entries at (leaf, idx)."""
+def _densify(idx, words, starts, lens, pw, w_off) -> torch.Tensor:
+    """The densified rows [K, pw] of the window at `w_off`: torch.zeros,
+    then one index assignment of every leaf's entries at (leaf, idx -
+    w_off)."""
     n_leaves, n_per_leaf = starts.shape
     n_entries = idx.shape[0]
     out = torch.zeros((n_leaves, pw), dtype=torch.int32, device=idx.device)
@@ -473,23 +604,24 @@ def _densify(idx, words, starts, lens, pw) -> torch.Tensor:
     inside = (pos >= 0) & (pos < n_entries)
     pos = pos[inside]
     leaf = seg[inside] // n_per_leaf
-    col = idx[pos].to(torch.int64)
+    col = idx[pos].to(torch.int64) - w_off
     keep = (col >= 0) & (col < pw)
     out[leaf[keep], col[keep]] = words[pos[keep]]
     return out
 
 
-def densify_rows_plain(idx, words, starts, lens, pw: int) -> torch.Tensor:
+def densify_rows_plain(idx, words, starts, lens, pw: int,
+                       w_off: int = 0) -> torch.Tensor:
     """The plain PyTorch version of densify_rows."""
     DENSIFY_ROWS.add(plain=True)
-    return _densify(idx, words, starts, lens, pw)
+    return _densify(idx, words, starts, lens, pw, w_off)
 
 
-def densify_rows_into_pool_plain(pool, idx, words, starts, lens,
-                                 slots) -> None:
+def densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots,
+                                 w_off: int = 0) -> None:
     """The plain PyTorch version of densify_rows_into_pool: densify_rows'
     rows assigned into pool[slots]."""
     DENSIFY_INTO_POOL.add(plain=True)
     slots = torch.as_tensor(slots, dtype=torch.int64).reshape(-1)
     pool[slots.to(pool.device)] = _densify(idx, words, starts, lens,
-                                           pool.shape[1])
+                                           pool.shape[1], w_off)

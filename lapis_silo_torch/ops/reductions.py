@@ -7,10 +7,13 @@ left it to XLA, too). ``mutation_counts`` and ``sparse_counts`` are the
 plain versions of the Mutations kernels (``csrc/mutation_counts.cu``,
 ``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
 CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
+``entry_chunks`` and ``clip_bounds`` split the sparse-tier stream's entries
+over word shards, as ``_sparse_mutation_counts_sharded_jit`` does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .words import popcount
@@ -70,3 +73,25 @@ def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
     vals = popcount(words & gathered) * inside
     per_segment = boundary_sums(vals, starts.reshape(-1), lens.reshape(-1))
     return per_segment.reshape(starts.shape).sum(dim=1).to(torch.int32)
+
+
+def entry_chunks(n_entries: int, n_chunks: int) -> list[tuple[int, int]]:
+    """`n_chunks` contiguous entry ranges [lo, hi) covering [0, n_entries),
+    as even as integers allow. The entry split of
+    lapis_silo_tpu/ops/reductions.py:99-146 without its padding: the port's
+    stream is unpadded and clip_bounds handles any split."""
+    edges = [n_entries * c // n_chunks for c in range(n_chunks + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def clip_bounds(starts: np.ndarray, lens: np.ndarray, lo: int,
+                hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Stream segments (start, len) clipped to the entry chunk [lo, hi), in
+    the chunk's own coordinates (reductions.py:134-137): the part of each
+    segment inside the chunk, empty where there is none. int64 arrays of
+    the bounds' shape."""
+    starts = np.asarray(starts, dtype=np.int64)
+    ends = starts + np.asarray(lens, dtype=np.int64)
+    local_lo = np.clip(starts - lo, 0, hi - lo)
+    local_hi = np.clip(ends - lo, 0, hi - lo)
+    return local_lo, np.maximum(local_hi - local_lo, 0)

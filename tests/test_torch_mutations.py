@@ -20,6 +20,10 @@ def _random(rng, n_rows, pw):
     return bank, filters
 
 
+def _t(array):
+    return torch.from_numpy(np.ascontiguousarray(array).view(np.int32))
+
+
 def _plain(bank, filters, start, n):
     counts = kernels.mutation_counts(torch.from_numpy(bank.view(np.int32)),
                                      torch.from_numpy(filters.view(np.int32)),
@@ -69,6 +73,27 @@ def test_mutation_counts_wrapper_counts_plain_runs_and_checks_rows():
         _plain(bank, filters[:-1].copy(), 0, 1)
 
 
+def test_plain_popcount_rows_and_filter_matches_mosaic_interpreted():
+    """popcount_rows_and_filter (K2 over every row) against the Mosaic
+    kernel in interpret mode at its padded block shapes, as
+    tests/test_pallas_kernels.py calls it, and on a ragged block the port
+    takes unpadded."""
+    rng = np.random.default_rng(0)
+    rows, filt = _random(rng, 2 * pk.ROW_BLOCK, pk.WORD_BLOCK)
+    want = np.asarray(pk.popcount_rows_and_filter(rows, filt, True))
+    before = kernels.POPCOUNT_ROWS.plain_launches
+    got = kernels.popcount_rows_and_filter(_t(rows), _t(filt))
+    assert kernels.POPCOUNT_ROWS.plain_launches == before + 1
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(
+        kernels.popcount_rows_and_filter_plain(_t(rows), _t(filt)), got)
+    ragged, ragged_filt = rows[:37, :300], filt[:300]
+    np.testing.assert_array_equal(
+        kernels.popcount_rows_and_filter(_t(ragged), _t(ragged_filt)).numpy(),
+        np.bitwise_count(ragged & ragged_filt).sum(axis=1))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -86,4 +111,14 @@ def test_mutation_counts_kernel_matches_plain_on_card(cuda_device, pw, start):
     want = kernels.mutation_counts(b, f, start, 290)
     got = kernels.mutation_counts(b.to(cuda_device), f.to(cuda_device), start,
                                   290)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_popcount_rows_and_filter_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(4)
+    rows, filt = _random(rng, 301, 2045)
+    want = kernels.popcount_rows_and_filter_plain(_t(rows), _t(filt))
+    got = kernels.popcount_rows_and_filter(_t(rows).to(cuda_device),
+                                           _t(filt).to(cuda_device))
     assert torch.equal(got.cpu(), want)
