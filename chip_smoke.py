@@ -13,7 +13,7 @@ Phases, one line each or more (the last line is the JSON verdict):
      pool slots including the scratch row, densify windows of word shards,
      the VM over 4 word shards) and at the main paths' shapes, with both
      times there (the two-tier shapes are compared in phase 7's set-up, the
-     sharded ones in phase 8a's);
+     sharded ones in phase 8a's, the windowed and chunked ones in 8b's);
   4. the dense main path at the bench default, 65,536 sequences x 29,903
      positions in 1 partition: (a) 64 count queries through
      db.execute_query, one at a time and then from a thread pool so the
@@ -36,10 +36,13 @@ Phases, one line each or more (the last line is the JSON verdict):
      count_programs (pooled) and through count_dispatches with
      force_poolless (densified blocks), (c) two Mutations queries; all equal
      to the host oracle;
-  8b. phase 7's corpus on 4 word shards of 16,384 words: cold and hot counts,
-     the pooled and the poolless wide batch, two Mutations queries, all equal
-     to the host oracle, through the window-local pool updates and densified
-     blocks and the entry-split sparse Mutations;
+  8b. phase 7's corpus on 4 word shards of 16,384 words: the window-local
+     densify_rows and densify_rows_into_pool and the chunked sparse_counts
+     against their plain versions at these shapes, with both times; then
+     cold and hot counts, the pooled and the poolless wide batch, two
+     Mutations queries, all equal to the host oracle, through the
+     window-local pool updates and densified blocks and the entry-split
+     sparse Mutations;
   6. assertions: every kernel launched during phases 4, 5, 7 and 8 (but
      popcount_rows_and_filter, which no engine path calls) and no plain
      version ran there, no JAX module was imported, the device path stayed
@@ -330,68 +333,94 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     return err
 
 
-def two_tier_kernels(engine, kernels, torch, err: dict, timings: dict) -> None:
-    """The sparse kernels at the two-tier deployment's shapes, against their
-    plain versions, with both times: sparse_counts over the whole stream,
-    densify_rows for max_sparse_k leaves, densify_rows_into_pool for one
-    _pool_update_k_cap chunk into a pool-sized block (the engine's own pool
-    is left alone)."""
-    rng = np.random.default_rng(7)
-    device = engine.full_masks.device
-    pw = engine.n_flat_words
-    stream = (engine.sparse_idx, engine.sparse_words)
-    filt = torch.from_numpy(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
-                            .view(np.int32)).to(device)
-    args = (*stream, filt, *engine._sparse_chunks[0][2:])
-    err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
-        kernels.sparse_counts(*args), kernels.sparse_counts_plain(*args)))
-    timings["sparse_counts"] = (
-        cuda_ms(lambda: kernels.sparse_counts(*args), reps=20),
-        cuda_ms(lambda: kernels.sparse_counts_plain(*args), reps=2, warmup=1))
+def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
+    """The sparse kernels at a two-tier engine's shapes, per word shard
+    (one on one device), against their plain versions, with both times:
+    sparse_counts over every entry chunk of the stream (the chunked launch
+    against the sum of the chunks' plain results), densify_rows for
+    max_sparse_k leaves into each shard's window, densify_rows_into_pool for
+    one _pool_update_k_cap chunk into each shard's window of a pool-sized
+    block (the engine's own pool is left alone). The shards on one card run
+    one after another; a time covers all of them. Returns {kernel: (ms,
+    plain ms)}."""
+    from lapis_silo_torch.parallel.shards import reduce_sum
 
-    leaves = rng.choice(engine.n_sparse, size=engine.max_sparse_k,
-                        replace=False)
-    bounds = engine._bounds_on_device(engine._bounds(leaves))
-    err["densify_rows"] = max(err["densify_rows"], max_abs_err(
-        kernels.densify_rows(*stream, *bounds, pw),
-        kernels.densify_rows_plain(*stream, *bounds, pw)))
+    rng = np.random.default_rng(7)
+    shards = engine.shards
+    pw = engine.n_flat_words
+    timings = {}
+    filt = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32).view(np.int32)
+    filters = [torch.from_numpy(filt).to(d) for d in shards.devices]
+    chunks = engine._sparse_chunks
+
+    def plain_chunked():
+        return reduce_sum([kernels.sparse_counts_plain(idx, words, f, *bounds)
+                           for (idx, words, *bounds), f in zip(chunks, filters)],
+                          shards.devices[0])
+    err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
+        kernels.sparse_counts_chunked(chunks, filters), plain_chunked()))
+    timings["sparse_counts"] = (
+        cuda_ms(lambda: kernels.sparse_counts_chunked(chunks, filters),
+                reps=20),
+        cuda_ms(plain_chunked, reps=2, warmup=1))
+
+    def window_args(leaves):
+        bounds = engine._bounds(leaves)
+        return [engine._window_stream(bounds, d) for d in range(len(shards))]
+
+    rows_args = [(*args, shards.local_words, w_off) for args, w_off in zip(
+        window_args(rng.choice(engine.n_sparse, size=engine.max_sparse_k,
+                               replace=False)), shards.offsets)]
+    for args in rows_args:
+        err["densify_rows"] = max(err["densify_rows"], max_abs_err(
+            kernels.densify_rows(*args), kernels.densify_rows_plain(*args)))
     timings["densify_rows"] = (
-        cuda_ms(lambda: kernels.densify_rows(*stream, *bounds, pw), reps=20),
-        cuda_ms(lambda: kernels.densify_rows_plain(*stream, *bounds, pw),
+        cuda_ms(lambda: [kernels.densify_rows(*a) for a in rows_args],
+                reps=20),
+        cuda_ms(lambda: [kernels.densify_rows_plain(*a) for a in rows_args],
                 reps=2, warmup=1))
 
     k_cap = min(engine._pool_update_k_cap, engine.pool_slots)
-    leaves = rng.choice(engine.n_sparse, size=k_cap, replace=False)
-    bounds = engine._bounds_on_device(engine._bounds(leaves))
+    streams = window_args(rng.choice(engine.n_sparse, size=k_cap,
+                                     replace=False))
     slots = np.concatenate([[engine.pool_slots], rng.permutation(
         engine.pool_slots)[: k_cap - 1]]).tolist()
-    pool = torch.randint(-2**31, 2**31 - 1, (engine.pool_slots + 1, pw),
-                         dtype=torch.int32, device=device)
-    want = pool.clone()
-    kernels.densify_rows_into_pool(pool, *stream, *bounds, slots)
-    kernels.densify_rows_into_pool_plain(want, *stream, *bounds, slots)
-    err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
-                                        max_abs_err(pool, want))
+    pools = [torch.randint(-2**31, 2**31 - 1,
+                           (engine.pool_slots + 1, shards.local_words),
+                           dtype=torch.int32, device=d) for d in shards.devices]
+    wants = [pool.clone() for pool in pools]
+    pool_args = [(pool, *stream, slots, w_off) for pool, stream, w_off
+                 in zip(pools, streams, shards.offsets)]
+    want_args = [(want, *stream, slots, w_off) for want, stream, w_off
+                 in zip(wants, streams, shards.offsets)]
+    for args, wargs in zip(pool_args, want_args):
+        kernels.densify_rows_into_pool(*args)
+        kernels.densify_rows_into_pool_plain(*wargs)
+        err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
+                                            max_abs_err(args[0], wargs[0]))
     timings["densify_rows_into_pool"] = (
-        cuda_ms(lambda: kernels.densify_rows_into_pool(
-            pool, *stream, *bounds, slots), reps=10),
-        cuda_ms(lambda: kernels.densify_rows_into_pool_plain(
-            want, *stream, *bounds, slots), reps=2, warmup=1))
-    log("7 kernels", f"two-tier shapes bit-exact, max_abs_err {err}; "
-        f"sparse_counts {engine.n_sparse} leaves x {engine.n_partitions} "
-        f"segments over {stream[0].shape[0]} entries "
-        f"({8 * stream[0].shape[0] / 1e9:.3f} GB): kernel "
-        f"{timings['sparse_counts'][0]:.4f} ms, plain "
-        f"{timings['sparse_counts'][1]:.2f} ms; densify_rows "
-        f"{engine.max_sparse_k} leaves x {pw} words: kernel "
+        cuda_ms(lambda: [kernels.densify_rows_into_pool(*a)
+                         for a in pool_args], reps=10),
+        cuda_ms(lambda: [kernels.densify_rows_into_pool_plain(*a)
+                         for a in want_args], reps=2, warmup=1))
+    n_entries = engine.sparse_idx.shape[0]
+    log(f"{label} kernels", f"two-tier shapes on {len(shards)} shard(s) of "
+        f"{shards.local_words} words bit-exact, max_abs_err "
+        f"{ {k: err[k] for k in timings} }; sparse_counts "
+        f"{engine.n_sparse} leaves x {engine.n_partitions} segments over "
+        f"{n_entries} entries ({8 * n_entries / 1e9:.3f} GB) in "
+        f"{len(chunks)} chunk(s): kernel {timings['sparse_counts'][0]:.4f} ms, "
+        f"plain {timings['sparse_counts'][1]:.2f} ms; densify_rows "
+        f"{engine.max_sparse_k} leaves into each window: kernel "
         f"{timings['densify_rows'][0]:.4f} ms, plain "
         f"{timings['densify_rows'][1]:.2f} ms; densify_rows_into_pool "
-        f"{k_cap} leaves into {engine.pool_slots + 1} rows: kernel "
-        f"{timings['densify_rows_into_pool'][0]:.4f} ms, plain "
+        f"{k_cap} leaves into {engine.pool_slots + 1} rows of each window: "
+        f"kernel {timings['densify_rows_into_pool'][0]:.4f} ms, plain "
         f"{timings['densify_rows_into_pool'][1]:.2f} ms")
-    del pool, want
+    del pools, wants, pool_args, want_args
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return timings
 
 
 def phase7(main: MainPath, kernels, torch, device, err: dict,
@@ -414,14 +443,14 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
     n_entries = engine.sparse_idx.shape[0] if engine.n_sparse else 0
     log("7 setup", f"two-tier corpus {TWO_TIER}: built in {t_db:.1f} s, "
         f"engine in {t_engine:.1f} s; n_sparse {engine.n_sparse}, dense rows "
-        f"{n_dense} (bank {tuple(engine.bank.shape)}), stream {n_entries} "
+        f"{n_dense} (bank {tuple(engine.banks[0].shape)}), stream {n_entries} "
         f"entries ({8 * n_entries / 1e9:.3f} GB), pool_slots "
         f"{engine.pool_slots} ({(engine.pool_slots + 1) * 4 * engine.n_flat_words / 1e9:.2f} GB), "
         f"max_sparse_k {engine.max_sparse_k}, pool update chunk "
         f"{engine._pool_update_k_cap}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     assert engine.n_sparse > 0 and engine.pool_slots > 0, "tier not on"
-    two_tier_kernels(engine, kernels, torch, err, timings)
+    timings.update(two_tier_kernels(engine, kernels, torch, err, "7"))
 
     counts64 = sample_count_queries(db, 64, seed=1)
     wide = sample_count_queries(db, 512, seed=7)
@@ -502,6 +531,13 @@ def detach(db, torch) -> None:
     torch.cuda.empty_cache()
 
 
+def peak_memory(torch, cards) -> str:
+    """Peak device memory since the last reset, per card."""
+    return " / ".join(f"{torch.cuda.max_memory_allocated(card) / 1e9:.2f}"
+                      for card in cards) + " GB" + (
+        " per card" if len(cards) > 1 else "")
+
+
 def install_sharded(db, torch, label: str):
     """install() with N_SHARDS word shards placed round-robin on the visible
     cards, and its set-up logged."""
@@ -509,23 +545,24 @@ def install_sharded(db, torch, label: str):
 
     n_cards = torch.cuda.device_count()
     devices = [torch.device(DEVICE, d % n_cards) for d in range(N_SHARDS)]
-    torch.cuda.reset_peak_memory_stats()
+    cards = list(dict.fromkeys(devices))
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     t0 = time.perf_counter()
     engine = lapis_silo_torch.install(db, devices[0], devices=devices)
-    for card in set(devices):
+    for card in cards:
         torch.cuda.synchronize(card)
     t_engine = time.perf_counter() - t0
-    cards = len(set(devices))
     bank = engine.banks[0]
     log(f"{label} setup", f"{N_SHARDS} word shards on "
-        f"{[str(d) for d in devices]}: {cards} card(s), "
+        f"{[str(d) for d in devices]}: {len(cards)} card(s), "
         + ("all shards on one card, so no copy crosses cards"
-           if cards == 1 else "counts and filters copied across cards")
+           if len(cards) == 1 else "counts and filters copied across cards")
         + f"; n_words {engine.n_words}, {engine.shards.local_words} words per "
         f"shard; bank {tuple(bank.shape)} per shard "
         f"({bank.numel() * 4 / 1e9:.2f} GB each); n_sparse {engine.n_sparse}, "
         f"pool_slots {engine.pool_slots}; built in {t_engine:.1f} s; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"device memory {peak_memory(torch, cards)}")
     return engine
 
 
@@ -600,18 +637,22 @@ def phase8a(main: MainPath, kernels, torch, db, counts64, want64, muts,
     detach(db, torch)
 
 
-def phase8b(main: MainPath, kernels, torch, answers: dict) -> None:
+def phase8b(main: MainPath, kernels, torch, answers: dict,
+            err: dict) -> None:
     """Phase 7's corpus and answers on the sharded engine: window-local pool
-    updates and densified blocks, the entry-split sparse Mutations."""
+    updates and densified blocks, the entry-split sparse Mutations; the
+    windowed and chunked kernels compared at these shapes first."""
     engine = install_sharded(answers["db"], torch, "8b")
     assert engine.n_sparse > 0 and engine.pool_slots > 0, "tier not on"
-    torch.cuda.reset_peak_memory_stats()
+    two_tier_kernels(engine, kernels, torch, err, "8b")
+    for card in engine.shards.distinct:
+        torch.cuda.reset_peak_memory_stats(card)
     two_tier_path(main, kernels, engine, answers, ("8b",) * 3)
     for k in (kernels.VM_RUN_SHARDED, kernels.DENSIFY_INTO_POOL,
               kernels.DENSIFY_ROWS, kernels.SPARSE_COUNTS):
         assert k.launches > 0, f"{k.name} did not launch in 8b"
     log("8b done", f"peak device memory over 8b "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{peak_memory(torch, engine.shards.distinct)}; launches "
         f"{ {k.name: k.launches for k in kernels.KERNELS} }")
     del engine
     detach(answers["db"], torch)
@@ -625,7 +666,9 @@ def main() -> int:
         f" CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke has no CPU path")
-    log("1 env", f"card: {nvidia_smi()}")
+    torch.cuda.init()  # every card's allocator, before any memory statistic
+    log("1 env", f"card: {nvidia_smi()}; {torch.cuda.device_count()} "
+        f"visible")
     device = torch.device(DEVICE)
 
     import lapis_silo_torch
@@ -656,7 +699,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_resident = time.perf_counter() - t0
     log("3 setup", f"bench corpus {BENCH}: built in {t_db:.1f} s, bank "
-        f"{tuple(engine.bank.shape)} ({engine.bank.numel() * 4 / 1e9:.3f} GB) "
+        f"{tuple(engine.banks[0].shape)} "
+        f"({engine.banks[0].numel() * 4 / 1e9:.3f} GB) "
         f"resident in {t_resident:.1f} s")
 
     err = phase3_random(kernels, vm, torch, device)
@@ -666,16 +710,19 @@ def main() -> int:
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     on_device = [p for p in lowered
                  if engine.host_count(p, allow_interpret=False) is None]
-    vm_inputs = engine.kernel_inputs(engine.batch_args(on_device))
+    code, n_instr, banks, dyns, rows, fulls, n_regs = engine.kernel_inputs(
+        engine.batch_args(on_device))
+    vm_inputs = (code.to(device), n_instr, banks[0], dyns[0], rows[0],
+                 fulls[0], n_regs)
     got, want = kernels.vm_run(*vm_inputs), kernels.vm_run_plain(*vm_inputs)
     err["vm_run"] = max(err["vm_run"], *map(max_abs_err, got, want))
     vm_ms = cuda_ms(lambda: kernels.vm_run(*vm_inputs), reps=20)
     vm_plain_ms = cuda_ms(lambda: kernels.vm_run_plain(*vm_inputs), reps=2,
                           warmup=0)
     mut_filter = engine.device_filter(
-        Query(mutations_queries(db)[0]).filter).words
+        Query(mutations_queries(db)[0]).filter).parts[0]
     meta = engine.segment_meta[("nuc", "main")]
-    mut_args = (engine.bank, mut_filter, meta["offset"], meta["n_stored"])
+    mut_args = (banks[0], mut_filter, meta["offset"], meta["n_stored"])
     err["mutation_counts"] = max(err["mutation_counts"], max_abs_err(
         kernels.mutation_counts(*mut_args),
         kernels.mutation_counts_plain(*mut_args)))
@@ -683,7 +730,7 @@ def main() -> int:
     mut_plain_ms = cuda_ms(lambda: kernels.mutation_counts_plain(*mut_args),
                            reps=3, warmup=1)
     # popcount_rows_and_filter: every bank row against the same filter
-    rows_args = (engine.bank, mut_filter)
+    rows_args = (banks[0], mut_filter)
     err["popcount_rows_and_filter"] = max(
         err["popcount_rows_and_filter"], max_abs_err(
             kernels.popcount_rows_and_filter(*rows_args),
@@ -736,8 +783,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_resident = time.perf_counter() - t0
     log("5 setup", f"deployment corpus {DEPLOYMENT}: built in {t_db:.1f} s, "
-        f"bank {tuple(big_engine.bank.shape)} "
-        f"({big_engine.bank.numel() * 4 / 1e9:.2f} GB) resident in "
+        f"bank {tuple(big_engine.banks[0].shape)} "
+        f"({big_engine.banks[0].numel() * 4 / 1e9:.2f} GB) resident in "
         f"{t_resident:.1f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     big_counts = sample_count_queries(big, 64, seed=1)
@@ -760,7 +807,7 @@ def main() -> int:
 
     # 7: the two-tier deployment, then 8b: the same on the sharded engine
     answers = phase7(main_path, kernels, torch, device, err, timings)
-    phase8b(main_path, kernels, torch, answers)
+    phase8b(main_path, kernels, torch, answers, err)
     assert all(e == 0 for e in err.values()), err
     del answers
     gc.collect()

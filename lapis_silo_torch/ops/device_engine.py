@@ -45,7 +45,8 @@ Mutations run per shard (``kernels.vm_run_sharded``,
 ``kernels.mutation_counts_sharded``), densify is window-local per shard, the
 sparse Mutations splits the stream's entries over the shards, and counts
 are summed on the primary device ``devices[0]``. Each shard launches on its
-device's default stream.
+device's default stream. One device is one shard (D = 1): the same code
+makes the same launches, with no sum and no copy.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import contextlib
 import os
 import threading
 import weakref
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -95,18 +96,6 @@ class BankState:
     sparse_words: torch.Tensor | None = None
     sparse_starts_pp: np.ndarray | None = None
     sparse_lengths_pp: np.ndarray | None = None
-
-    @property
-    def bank(self) -> torch.Tensor:
-        """The dense bank [R, PW] of a one-device state."""
-        (bank,) = self.banks
-        return bank
-
-    @property
-    def full_masks(self) -> torch.Tensor:
-        """The full masks [PW] of a one-device state."""
-        (full,) = self.fulls
-        return full
 
 
 class VmArgs(NamedTuple):
@@ -363,19 +352,16 @@ class DeviceEngine:
             raise NotImplementedError("empty database")
         self.n_partitions = len(partitions)
         self.part_rows = [p.sequence_count for p in partitions]
-        if devices is not None:
-            devices = [resolve(d) for d in devices]
-            if not devices or resolve(self.device) != devices[0]:
-                raise ValueError(f"device {self.device} is not the first "
-                                 f"of devices {devices}")
-        self.sharded = devices is not None and len(devices) > 1
-        if self.sharded:
-            self.device = devices[0]
-        else:
-            devices = [resolve(self.device)]
+        if devices is None:
+            devices = [self.device]
+        devices = [resolve(d) for d in devices]
+        if not devices or resolve(self.device) != devices[0]:
+            raise ValueError(f"device {self.device} is not the first of "
+                             f"devices {devices}")
+        self.device = devices[0]
         if state is None:
             state = build_state(database, self.device, sparse_min_words,
-                                devices if self.sharded else None)
+                                devices)
         self.segment_meta = state.segment_meta
         self.banks = state.banks
         self.fulls = state.fulls
@@ -430,15 +416,11 @@ class DeviceEngine:
                 ] = meta["totals"][meta["sparse_sym_ids"],
                                    meta["sparse_pos_ids"]]
         # the Mutations reduction's stream chunks, resident: (idx, words,
-        # starts, lens) per shard. One device reduces the whole stream; the
-        # shards split its entries, each chunk's bounds clipped to it
-        # (reductions.py:99-146)
+        # starts, lens) per shard. The shards split the stream's entries,
+        # each chunk's bounds clipped to it (reductions.py:99-146); one
+        # device's chunk is the whole stream
         self._sparse_chunks: list[tuple] = []
-        if self.n_sparse and not self.sharded:
-            self._sparse_chunks = [(self.sparse_idx, self.sparse_words,
-                                    *self._bounds_on_device(self._bounds(
-                                        np.arange(self.n_sparse))))]
-        elif self.n_sparse:
+        if self.n_sparse:
             for shard, (lo, hi) in zip(self.shards.devices, entry_chunks(
                     self.sparse_idx.shape[0], len(self.shards))):
                 idx, words = self._stream_on[shard]
@@ -465,14 +447,15 @@ class DeviceEngine:
         # kernel's cost follows the live entries, so there is none
         self.sparse_shape_ladder: list = []
 
-        # HOT-LEAF POOL: [C + 1, PW] rows of densified sparse leaves (row C
-        # is scratch), SLRU-managed by leaf id: leaves hit on a second
-        # distinct call move to _protected (at most 80% of the slots), and
-        # eviction takes unprotected LRU leaves first, so a one-pass scan
-        # cannot flush the repeatedly hit working set
+        # HOT-LEAF POOL: [C + 1, PW/D] rows per shard of densified sparse
+        # leaves (row C is scratch; slot c is row c of every shard),
+        # SLRU-managed by leaf id: leaves hit on a second distinct call move
+        # to _protected (at most 80% of the slots), and eviction takes
+        # unprotected LRU leaves first, so a one-pass scan cannot flush the
+        # repeatedly hit working set
         self.pool_slots = self._pool_slot_count()
         self.sparse_batch_cap = self.pool_slots or self.max_sparse_k
-        self.leaf_pool: torch.Tensor | None = None  # allocated on first use
+        self.leaf_pool: list | None = None  # allocated on first use
         self._leaf_slot: OrderedDict[int, int] = OrderedDict()  # LRU
         self._protected: OrderedDict[int, None] = OrderedDict()
         self._protected_cap = max(1, (self.pool_slots * 4) // 5)
@@ -496,31 +479,13 @@ class DeviceEngine:
     def _on_stream(self):
         """The engine's streams as the current ones: each shard device's
         default stream (no-op off CUDA)."""
-        if not self._cuda_streams:
-            return contextlib.nullcontext()
-        if len(self._cuda_streams) == 1:
-            return torch.cuda.stream(self._cuda_streams[0])
         stack = contextlib.ExitStack()
         for stream in self._cuda_streams:
             stack.enter_context(torch.cuda.stream(stream))
         return stack
 
-    @property
-    def bank(self) -> torch.Tensor:
-        """The dense bank [R, PW] of a one-device engine."""
-        (bank,) = self.banks
-        return bank
-
-    @property
-    def full_masks(self) -> torch.Tensor:
-        """The full masks [PW] of a one-device engine."""
-        (full,) = self.fulls
-        return full
-
     def _gather_host(self, parts: list) -> np.ndarray:
         """Per-shard words [..., PW/D] -> host uint32 words [..., PW]."""
-        if len(parts) == 1:
-            return to_host(parts[0])
         return to_host(gather_words(parts, "cpu"))
 
     # -- hot-leaf pool ------------------------------------------------------
@@ -533,21 +498,25 @@ class DeviceEngine:
         words, at most 8,192 and the leaf count, none below 64 or with
         SILO_LEAF_POOL=0. Per device, as the reference accounts a mesh
         (device_engine.py:496-517): the bank and the pool shard, the stream
-        is whole on every device."""
+        is whole on every device. Devices may repeat, so the device holding
+        the most shards is charged for all of its shards' bank and pool
+        rows."""
+        per_device = max(Counter(self.shards.devices).values())
+        row_bytes = 4 * self.shards.local_words * per_device
         env_pool_gb = os.environ.get("SILO_LEAF_POOL_GB")
         if env_pool_gb is not None:
             pool_budget = float(env_pool_gb) * 2**30
         else:
             budget_bytes = int(float(os.environ.get(
                 "SILO_DENSE_BANK_BUDGET_GB", SPARSE_BANK_BUDGET_GB)) * 2**30)
-            bank_bytes = 4 * self.n_rows * self.shards.local_words
+            bank_bytes = self.n_rows * row_bytes
             stream_bytes = (8 * self.sparse_idx.shape[0]
                             if self.sparse_idx is not None else 0)
             free = budget_bytes - bank_bytes - stream_bytes
             pool_budget = min(6 * 2**30, free - 2 * 2**30)
             if pool_budget < 1 * 2**30:
                 pool_budget = 0
-        want_slots = int(pool_budget // (4 * self.shards.local_words))
+        want_slots = int(pool_budget // row_bytes)
         if (self.n_sparse > 0 and os.environ.get("SILO_LEAF_POOL", "1") != "0"
                 and want_slots >= 64):
             return min(want_slots, self.n_sparse, 8192)
@@ -837,29 +806,22 @@ class DeviceEngine:
 
     def kernel_inputs(self, args: VmArgs, sparse_rows: list | None = None,
                       ) -> tuple:
-        """The positional arguments of kernels.vm_run (one device) or of
-        kernels.vm_run_sharded for one launch: the code block's first
-        n_instr columns, the dyn rows uploaded, and the rows B_SPARSE
-        operands read (`sparse_rows`, one tensor per shard; one zero row for
-        programs without sparse leaves)."""
+        """The positional arguments of kernels.vm_run_sharded for one
+        launch: the code block's first n_instr columns, the dyn rows
+        uploaded, and the rows B_SPARSE operands read (`sparse_rows`, one
+        tensor per shard; one zero row for programs without sparse
+        leaves)."""
         code = torch.from_numpy(np.ascontiguousarray(args.code[:, :args.n_instr]))
         dyns = self._dyn_tensor(args.dyn_rows, args.n_dyn)
         rows = self._sparse_zero if sparse_rows is None else sparse_rows
-        if self.sharded:
-            return (code, args.n_instr, self.banks, dyns, rows, self.fulls,
-                    args.n_regs)
-        return (code.to(self.device), args.n_instr, self.banks[0], dyns[0],
-                rows[0], self.fulls[0], args.n_regs)
+        return (code, args.n_instr, self.banks, dyns, rows, self.fulls,
+                args.n_regs)
 
     def _vm(self, args: VmArgs, sparse_rows: list | None = None,
             ) -> tuple[list, torch.Tensor]:
-        """One VM launch: (reg[0] words per shard, counts [4096] on the
-        primary device)."""
-        inputs = self.kernel_inputs(args, sparse_rows)
-        if self.sharded:
-            return kernels.vm_run_sharded(*inputs)
-        words, counts = kernels.vm_run(*inputs)
-        return [words], counts
+        """One VM launch per shard: (reg[0] words per shard, counts [4096]
+        on the primary device)."""
+        return kernels.vm_run_sharded(*self.kernel_inputs(args, sparse_rows))
 
     def _run(self, args: VmArgs,
              use_pool: bool = True) -> tuple[list, torch.Tensor]:
@@ -1163,10 +1125,9 @@ class DeviceEngine:
 
     def _sparse_counts(self, filter_words) -> np.ndarray:
         """int64[n_sparse]: popcount(row & filter) for every sparse-tier row
-        (all segments) in ONE launch of the sparse-counts kernel over the
-        stream, or one per shard over its entry chunk against the whole
-        filter on its device (memoized per filter, as the reference
-        does)."""
+        (all segments): one launch of the sparse-counts kernel per shard
+        over its entry chunk, against the whole filter on its device
+        (memoized per filter, as the reference does)."""
         key = (id(filter_words) if isinstance(filter_words, DeviceFilter)
                else tuple(id(w) for w in filter_words))
         memo = self._sparse_counts_memo
@@ -1174,16 +1135,11 @@ class DeviceEngine:
             return memo[2]
         filters = self._filters_for(filter_words)
         with self._on_stream():
-            if self.sharded:
-                whole = {shard: gather_words(filters, shard)
-                         for shard in self.shards.distinct}
-                counts = kernels.sparse_counts_chunked(
-                    self._sparse_chunks,
-                    [whole[shard] for shard in self.shards.devices])
-            else:
-                idx, words, starts, lens = self._sparse_chunks[0]
-                counts = kernels.sparse_counts(idx, words, filters[0], starts,
-                                               lens)
+            whole = {shard: gather_words(filters, shard)
+                     for shard in self.shards.distinct}
+            counts = kernels.sparse_counts_chunked(
+                self._sparse_chunks,
+                [whole[shard] for shard in self.shards.devices])
             out = counts.cpu().numpy().astype(np.int64)
         self._sparse_counts_memo = (key, filter_words, out)
         return out
@@ -1219,13 +1175,9 @@ class DeviceEngine:
                         (meta["s_count"], meta["length"]), dtype=np.int64)
                     continue
                 dev = None
-                if meta["n_stored"] and self.sharded:
+                if meta["n_stored"]:
                     dev = kernels.mutation_counts_sharded(
                         self.banks, self._filters_for(filter_words),
-                        meta["offset"], meta["n_stored"])
-                elif meta["n_stored"]:
-                    dev = kernels.mutation_counts(
-                        self.banks[0], self._filters_for(filter_words)[0],
                         meta["offset"], meta["n_stored"])
                 need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
                 pending.append((name, meta, dev))
@@ -1261,14 +1213,6 @@ class DeviceFilter:
         self.engine = engine
         self.parts = parts
         self._popcount: int | None = None
-
-    @property
-    def words(self) -> torch.Tensor:
-        """The flat [PW] words on the primary device (gathered from the
-        shards of a sharded engine)."""
-        if len(self.parts) == 1:
-            return self.parts[0]
-        return gather_words(self.parts, self.engine.device)
 
     def popcount(self) -> int:
         if self._popcount is None:

@@ -335,7 +335,7 @@ def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
     if not tensors or any(len(arg) != len(tensors) for arg in per_shard):
         raise ValueError("one entry per shard in every shard list")
     devices = [tensor.device for tensor in tensors]
-    if len({device.type for device in devices}) > 1:
+    if len(devices) > 1 and len({device.type for device in devices}) > 1:
         raise ValueError(f"shards mix device types: {devices}")
     return devices
 
@@ -351,10 +351,12 @@ def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
     device, is the global count (the psum of pallas_kernels.py:763).
     Returns (reg[0] words per shard, counts [4096] int32)."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
-    codes = {device: code.to(device) for device in dict.fromkeys(devices)}
+    codes = {}
     words, counts = [], []
     for device, bank, dyn, rows, full in zip(devices, banks, dyns,
                                              sparse_rows, fulls):
+        if device not in codes:
+            codes[device] = code.to(device)
         shard_words, shard_counts = vm_run(codes[device], n_instr, bank, dyn,
                                            rows, full, n_regs)
         words.append(shard_words)

@@ -21,8 +21,6 @@ reference's all-gather, lapis_silo_tpu/ops/reductions.py:124).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -78,7 +76,10 @@ class ShardLayout:
 def reduce_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The elementwise sum of equal-shape tensors, on `device`: each copied
     there (no copy where it already lies) and added in its own dtype."""
-    return functools.reduce(torch.add, (part.to(device) for part in parts))
+    total = parts[0] if parts[0].device == device else parts[0].to(device)
+    for part in parts[1:]:
+        total = total + part.to(device)
+    return total
 
 
 def split_words(words: np.ndarray, devices) -> list[torch.Tensor]:
@@ -94,5 +95,8 @@ def split_words(words: np.ndarray, devices) -> list[torch.Tensor]:
 
 def gather_words(parts: list[torch.Tensor], device) -> torch.Tensor:
     """The shards' words [..., PW/D] joined along the word axis into one
-    tensor [..., PW] on `device` (the host with ``"cpu"``)."""
+    tensor [..., PW] on `device` (the host with ``"cpu"``); one shard's
+    words are copied only to reach `device`."""
+    if len(parts) == 1:
+        return parts[0].to(device)
     return torch.cat([part.to(device) for part in parts], dim=-1)

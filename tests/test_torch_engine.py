@@ -62,8 +62,10 @@ def test_state_from_reference_equals_own_build(rich):
                                      np.asarray(ref.full_masks),
                                      ref.segment_meta, CPU)
     own = build_state(db, CPU)
-    assert torch.equal(own.bank, converted.bank)
-    assert torch.equal(own.full_masks, converted.full_masks)
+    (own_bank,), (converted_bank,) = own.banks, converted.banks
+    assert torch.equal(own_bank, converted_bank)
+    (own_full,), (converted_full,) = own.fulls, converted.fulls
+    assert torch.equal(own_full, converted_full)
     assert own.segment_meta.keys() == converted.segment_meta.keys()
     for key, want in converted.segment_meta.items():
         got = own.segment_meta[key]

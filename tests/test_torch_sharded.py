@@ -343,7 +343,7 @@ def _check_engine(port, ref, db, filters, route="pooled"):
 def test_sharded_dense_engine_matches_jax_mesh_and_oracle(dense_db, dense_ref,
                                                           n_shards):
     port = DeviceEngine(dense_db, CPU, devices=[CPU] * n_shards)
-    assert port.sharded and port.n_sparse == 0
+    assert len(port.shards) == n_shards and port.n_sparse == 0
     assert port.n_words == 24 and len(port.banks) == n_shards
     assert port.banks[0].shape == (dense_ref.n_rows, 3 * 24 // n_shards)
     kernels.reset_counts()
@@ -437,7 +437,8 @@ def test_execute_query_through_sharded_install(monkeypatch):
     ref_db = synthetic_database(**TWO_TIER)
     port_db = synthetic_database(**TWO_TIER)
     engine = lapis_silo_torch.install(port_db, CPU, devices=[CPU] * 4)
-    assert engine.sharded and engine.n_sparse > 0 and engine.pool_slots > 0
+    assert len(engine.shards) == 4 and engine.n_sparse > 0
+    assert engine.pool_slots > 0
     counts = sample_count_queries(ref_db, 24, seed=8)
     muts = [json.dumps({"action": {"type": "Mutations", "minProportion": p},
                         "filterExpression": f}) for f, p in (
@@ -453,6 +454,21 @@ def test_execute_query_through_sharded_install(monkeypatch):
         port_db.device_engine = engine
     assert [port_db.execute_query(q) for q in counts + muts] == want
     assert port_db._engine._use_device
+
+
+@pytest.mark.parametrize("n_shards", [1, 4, 8])
+def test_pool_is_charged_per_device(two_tier_db, n_shards, monkeypatch):
+    """Shards on one device add up there: a pool budget buys as many slots
+    as the flat row PW fits in it, however many shards share the device."""
+    pool_bytes = 80 * 4 * 72  # 80 flat rows of 3 x 24 words
+    monkeypatch.setenv("SILO_LEAF_POOL_GB", str(pool_bytes / 2**30))
+    port = DeviceEngine(two_tier_db, CPU, sparse_min_words=1,
+                        devices=[CPU] * n_shards)
+    assert port.n_sparse > 8 * 80  # no cap hides 8x too many slots
+    assert port.pool_slots == pool_bytes // (4 * port.n_flat_words)
+    port.warm_pool_updates()
+    pool_words = sum(pool.numel() for pool in port.leaf_pool)
+    assert 4 * pool_words <= pool_bytes + 4 * port.n_flat_words  # + scratch
 
 
 def test_sharded_engine_refuses_mismatched_devices(dense_db):

@@ -87,7 +87,10 @@ def test_state_from_reference_equals_own_build(corpus, ref_engine):
         ref_engine.segment_meta, CPU, np.asarray(ref_engine.sparse_stream[0]),
         ref_engine.sparse_starts_pp, ref_engine.sparse_lengths_pp)
     own = build_state(corpus, CPU, sparse_min_words=1)
-    for name in ("bank", "full_masks", "sparse_idx", "sparse_words"):
+    for name in ("banks", "fulls"):
+        (got,), (want,) = getattr(own, name), getattr(converted, name)
+        assert torch.equal(got, want), name
+    for name in ("sparse_idx", "sparse_words"):
         assert torch.equal(getattr(own, name), getattr(converted, name)), name
     assert own.sparse_idx.shape[0] == int(ref_engine.sparse_lengths.sum())
     for name in ("sparse_starts_pp", "sparse_lengths_pp"):
