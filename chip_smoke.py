@@ -11,9 +11,13 @@ Phases, one line each or more (the last line is the JSON verdict):
      card, bit-exact (tolerance 0: every value is an integer), on random
      inputs (ragged word counts, empty segments, K = 1 and K at the caps,
      pool slots including the scratch row, densify windows of word shards,
-     the VM over 4 word shards) and at the main paths' shapes, with both
-     times there (the two-tier shapes are compared in phase 7's set-up, the
-     sharded ones in phase 8a's, the windowed and chunked ones in 8b's);
+     the VM in one segment and in random segments, also over 4 word shards)
+     and at the main paths' shapes (the 512-query batch in its per-query
+     segments, and as one segment), with both times there and each kernel's
+     bound, the larger of its bytes over the HBM rate and its operations
+     over the peak rate (the two-tier shapes are compared in phase 7's
+     set-up, the sharded ones in phase 8a's, the windowed and chunked ones
+     in 8b's);
   4. the dense main path at the bench default, 65,536 sequences x 29,903
      positions in 1 partition: (a) 64 count queries through
      db.execute_query, one at a time and then from a thread pool so the
@@ -45,14 +49,15 @@ Phases, one line each or more (the last line is the JSON verdict):
      sparse Mutations;
   6. assertions: every kernel launched during phases 4, 5, 7 and 8 (but
      popcount_rows_and_filter, which no engine path calls) and no plain
-     version ran there, no JAX module was imported, the device path stayed
-     on.
+     version ran there, no module of jax* or lapis_silo_tpu* was loaded,
+     the device path stayed on.
 
 Each main-path phase runs with the launch counts set to 0 just before it and
 read just after; the comparisons between phases are not counted. There is no
 CPU path: without a CUDA device the script exits non-zero before phase 2. It
-imports the JAX package's host layers (storage, query language, synthetic
-corpora), which import no JAX, and asserts that none of its JAX modules was
+builds its corpora and its host oracle from the port alone
+(``lapis_silo_torch.testing``, ``QueryEngine(db, use_device=False)``) and
+asserts at the end that no module of ``jax*`` or ``lapis_silo_tpu*`` was
 loaded.
 """
 
@@ -78,11 +83,14 @@ TWO_TIER = dict(n_rows=2097152, length=29903, n_partitions=8)
 N_SHARDS = 4
 # kernels that no main-path phase runs (they have no engine caller)
 OFF_PATH = ("popcount_rows_and_filter",)
-# the JAX package's device layer: none of these may be imported
-JAX_MODULES = ("jax", "jaxlib", "lapis_silo_tpu.ops.device_engine",
-               "lapis_silo_tpu.ops.vm", "lapis_silo_tpu.ops.lowering",
-               "lapis_silo_tpu.ops.reductions",
-               "lapis_silo_tpu.ops.pallas_kernels", "lapis_silo_tpu.parallel")
+# JAX and the JAX package: no module of either may be loaded
+JAX_MODULES = ("jax", "lapis_silo_tpu")
+# the least time of a kernel's work: its bytes over the H100's HBM rate, or
+# its operations (integer ALU and popcount, on the CUDA cores) over the
+# card's peak outside the tensor cores, 67 T/s (the on-chip-measurement
+# guide's table), whichever is longer, per card the work is spread over
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
             in (("vm_run", 526), ("mutation_counts", 150),
                 ("sparse_counts", 438), ("densify_rows", 850),
@@ -103,19 +111,63 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `reps` calls."""
+    """Mean device time of fn() in ms, by CUDA events over `reps` calls. The
+    calls are queued behind a spin of about 50 ms on the card, so that the
+    host's time between launches (argument checks, uploads) does not show
+    in a kernel's time while the queue lasts."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float, n_cards: int = 1) -> tuple:
+    """(bound_ms, bound_by) of work that moves `n_bytes` and does `n_ops`
+    spread evenly over `n_cards` cards."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S / n_cards * 1e3
+    t_ops = n_ops / CORE_OPS_PER_S / n_cards * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vm_work(vm, code, n_instr: int, rows: dict, pw: int,
+            segments) -> tuple[int, int]:
+    """(bytes, operations) a VM launch needs: each distinct row its
+    instructions read (bank, dyn, sparse; clipped as the kernel clips), the
+    full mask, the code and segment starts read once; reg[0] words and the
+    4,096 counts written once; one ALU operation per instruction and word,
+    and a popcount per EMIT and word."""
+    code = np.asarray(code)[:, :n_instr]
+    specs = code[1].astype(np.int64)
+    bsrc = (specs >> vm.WIRE_BSRC_SHIFT) & 0xF
+    n_rows = 0
+    for src, n in rows.items():
+        picked = np.clip(code[0][bsrc == src], 0, n - 1)
+        n_rows += np.unique(picked).size
+    n_emits = int(((specs >> vm.WIRE_OP_SHIFT) & 0x3 == vm.EMIT_COUNT).sum())
+    n_seg = 1 if segments is None else len(segments) - 1
+    n_bytes = (4 * pw * (n_rows + 2) + 8 * n_instr + 4 * (n_seg + 1)
+               + 4 * vm.MAX_BATCH_QUERIES)
+    return n_bytes, (n_instr + n_emits) * pw
+
+
+def stream_work(starts, lens, n_out_words: int, n_extra: int = 0):
+    """(bytes, operations) of a pass over the CSR entries of the segments
+    (starts, lens [K, P] host arrays) that writes `n_out_words` int32:
+    each entry's index and word read once, the bounds read once, `n_extra`
+    more int32 moved; one operation per entry."""
+    n_entries = int(np.asarray(lens, dtype=np.int64).sum())
+    return (8 * n_entries + 8 * np.asarray(starts).size
+            + 4 * (n_out_words + n_extra), n_entries)
 
 
 def max_abs_err(got, want) -> int:
@@ -150,7 +202,7 @@ class MainPath:
 def oracle(db, queries: list[str]) -> list[dict]:
     """The host query engine's answers. The device engine is detached while
     it runs: the Mutations action would otherwise reduce on it."""
-    from lapis_silo_tpu.query.engine import QueryEngine
+    from lapis_silo_torch.query.engine import QueryEngine
 
     device_engine = db.device_engine
     db.device_engine = None
@@ -164,7 +216,7 @@ def oracle(db, queries: list[str]) -> list[dict]:
 def mutations_queries(db) -> list[str]:
     """Two selective Mutations filters: one stored mutation, and a mutation
     OR'd with a narrow age band."""
-    from lapis_silo_tpu.common.symbols import NUCLEOTIDE
+    from lapis_silo_torch.common.symbols import NUCLEOTIDE
 
     ref = db.reference_genomes.nucleotide_ids["main"]
     pos_a, pos_b = min(21562, len(ref) - 1), min(2400, len(ref) - 1)
@@ -235,7 +287,9 @@ def random_stream(rng, n_leaves: int, n_parts: int, part_words: int,
 def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     """Every kernel against its plain version on random inputs: for the VM
     every mode and b-source, n_regs 4/8/16/32, clamped operands, the NOP
-    tail, out-of-range and repeated EMITs, PW 2,048 and ragged PWs; for the
+    tail, out-of-range and repeated EMITs, PW 2,048 and ragged PWs, each
+    program as one segment and cut into random segments (empty ones and
+    segments of one instruction included), also over 4 word shards; for the
     Mutations kernel unaligned segments; for the sparse kernels empty
     segments, ragged PWs, K = 1, K = 1,024 (the two-tier poolless cap) and a
     4,096-leaf pool update, with pool slots including the scratch row.
@@ -265,16 +319,23 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                        | (rng.integers(0, 16, size=n) << 24)
                        | (rng.integers(0, 16, size=n) << 28))
             code = vm.pack_code_array(512, opcodes, operands, regspec)
-            args = (dev(code), vm._round_instr(n), dev(bank), dev(dyn),
-                    dev(sparse), dev(full), n_regs)
-            got = kernels.vm_run(*args)
-            want = kernels.vm_run_plain(*args)
-            for g, w in zip(got, want):
-                err["vm_run"] = max(err["vm_run"], max_abs_err(g, w))
-            if pw % 4 == 0:  # the same program over 4 word shards
+            n_instr = vm._round_instr(n)
+            # random cuts, an empty segment and one of one instruction
+            cuts = np.sort(np.concatenate([
+                rng.integers(0, n_instr + 1, size=n_regs * 2), [5, 5, 6]]))
+            for segments in (None, np.concatenate([[0], cuts, [n_instr]])):
+                args = (dev(code), n_instr, dev(bank), dev(dyn), dev(sparse),
+                        dev(full), n_regs, segments)
+                got = kernels.vm_run(*args)
+                want = kernels.vm_run_plain(*args)
+                for g, w in zip(got, want):
+                    err["vm_run"] = max(err["vm_run"], max_abs_err(g, w))
+                if pw % 4:
+                    continue
+                # the same program over 4 word shards
                 shards = (*args[:2], *([dev(part) for part in np.split(
                     a, 4, axis=-1)] for a in (bank, dyn, sparse, full)),
-                          n_regs)
+                          n_regs, segments)
                 (got_words, got_counts), (want_words, want_counts) = (
                     kernels.vm_run_sharded(*shards),
                     kernels.vm_run_sharded_plain(*shards))
@@ -342,7 +403,7 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
     one _pool_update_k_cap chunk into each shard's window of a pool-sized
     block (the engine's own pool is left alone). The shards on one card run
     one after another; a time covers all of them. Returns {kernel: (ms,
-    plain ms)}."""
+    plain ms, bytes, operations)}, the last two for the bound."""
     from lapis_silo_torch.parallel.shards import reduce_sum
 
     rng = np.random.default_rng(7)
@@ -362,15 +423,18 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
     timings["sparse_counts"] = (
         cuda_ms(lambda: kernels.sparse_counts_chunked(chunks, filters),
                 reps=20),
-        cuda_ms(plain_chunked, reps=2, warmup=1))
+        cuda_ms(plain_chunked, reps=2, warmup=1),
+        *stream_work(engine.sparse_starts_pp, engine.sparse_lengths_pp,
+                     engine.n_sparse, pw))
 
-    def window_args(leaves):
-        bounds = engine._bounds(leaves)
+    def window_args(bounds):
         return [engine._window_stream(bounds, d) for d in range(len(shards))]
 
+    rows_bounds = engine._bounds(rng.choice(engine.n_sparse,
+                                            size=engine.max_sparse_k,
+                                            replace=False))
     rows_args = [(*args, shards.local_words, w_off) for args, w_off in zip(
-        window_args(rng.choice(engine.n_sparse, size=engine.max_sparse_k,
-                               replace=False)), shards.offsets)]
+        window_args(rows_bounds), shards.offsets)]
     for args in rows_args:
         err["densify_rows"] = max(err["densify_rows"], max_abs_err(
             kernels.densify_rows(*args), kernels.densify_rows_plain(*args)))
@@ -378,11 +442,13 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         cuda_ms(lambda: [kernels.densify_rows(*a) for a in rows_args],
                 reps=20),
         cuda_ms(lambda: [kernels.densify_rows_plain(*a) for a in rows_args],
-                reps=2, warmup=1))
+                reps=2, warmup=1),
+        *stream_work(*rows_bounds, engine.max_sparse_k * pw))
 
     k_cap = min(engine._pool_update_k_cap, engine.pool_slots)
-    streams = window_args(rng.choice(engine.n_sparse, size=k_cap,
-                                     replace=False))
+    pool_bounds = engine._bounds(rng.choice(engine.n_sparse, size=k_cap,
+                                            replace=False))
+    streams = window_args(pool_bounds)
     slots = np.concatenate([[engine.pool_slots], rng.permutation(
         engine.pool_slots)[: k_cap - 1]]).tolist()
     pools = [torch.randint(-2**31, 2**31 - 1,
@@ -402,7 +468,8 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         cuda_ms(lambda: [kernels.densify_rows_into_pool(*a)
                          for a in pool_args], reps=10),
         cuda_ms(lambda: [kernels.densify_rows_into_pool_plain(*a)
-                         for a in want_args], reps=2, warmup=1))
+                         for a in want_args], reps=2, warmup=1),
+        *stream_work(*pool_bounds, k_cap * pw, k_cap))
     n_entries = engine.sparse_idx.shape[0]
     log(f"{label} kernels", f"two-tier shapes on {len(shards)} shard(s) of "
         f"{shards.local_words} words bit-exact, max_abs_err "
@@ -429,7 +496,7 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
     then the main path against the host oracle. Returns the corpus (its
     engine dropped) and the oracle's answers for phase 8b."""
     import lapis_silo_torch
-    from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+    from lapis_silo_torch.testing import sample_count_queries, synthetic_database
 
     t0 = time.perf_counter()
     db = synthetic_database(**TWO_TIER)
@@ -478,7 +545,7 @@ def two_tier_path(main: MainPath, kernels, engine, answers: dict,
     counts cold and then hot, (b) the 512 queries through count_programs
     (pooled) and through count_dispatches with force_poolless (densified
     blocks), (c) the Mutations queries."""
-    from lapis_silo_tpu.query.engine import Query
+    from lapis_silo_torch.query.engine import Query
 
     db, want_wide = answers["db"], answers["want_wide"]
     lowered = [engine.lower(Query(q).filter)[0] for q in answers["wide"]]
@@ -568,15 +635,18 @@ def install_sharded(db, torch, label: str):
 
 def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
                     timings: dict) -> None:
-    """vm_run_sharded (the wide batch's programs) and
+    """vm_run_sharded (the wide batch's programs, in their segments) and
     mutation_counts_sharded (the main segment against a Mutations filter)
     against their plain versions at the sharded engine's shapes, with both
-    times."""
-    from lapis_silo_tpu.query.engine import Query
+    times and the work for their bounds (spread over the cards the shards
+    lie on)."""
+    from lapis_silo_torch.ops import vm
+    from lapis_silo_torch.query.engine import Query
 
     on_device = [p for p in lowered
                  if engine.host_count(p, allow_interpret=False) is None]
     inputs = engine.kernel_inputs(engine.batch_args(on_device))
+    code, n_instr, banks, dyns, rows, _fulls, _n_regs, segments = inputs
     (got_words, got_counts), (want_words, want_counts) = (
         kernels.vm_run_sharded(*inputs), kernels.vm_run_sharded_plain(*inputs))
     err["vm_run_sharded"] = max(err["vm_run_sharded"],
@@ -585,7 +655,12 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
     timings["vm_run_sharded"] = (
         cuda_ms(lambda: kernels.vm_run_sharded(*inputs), reps=20),
         cuda_ms(lambda: kernels.vm_run_sharded_plain(*inputs), reps=1,
-                warmup=0))
+                warmup=0),
+        *vm_work(vm, code, n_instr, {vm.B_BANK: banks[0].shape[0],
+                                     vm.B_DYN: dyns[0].shape[0],
+                                     vm.B_SPARSE: rows[0].shape[0]},
+                 engine.n_flat_words, segments),
+        len(engine.shards.distinct))
     filters = engine.device_filter(Query(mut_query).filter).parts
     meta = engine.segment_meta[("nuc", "main")]
     args = (engine.banks, filters, meta["offset"], meta["n_stored"])
@@ -593,13 +668,17 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
         err["mutation_counts_sharded"], max_abs_err(
             kernels.mutation_counts_sharded(*args),
             kernels.mutation_counts_sharded_plain(*args)))
+    n_rows, pw = meta["n_stored"], engine.n_flat_words
     timings["mutation_counts_sharded"] = (
         cuda_ms(lambda: kernels.mutation_counts_sharded(*args), reps=20),
         cuda_ms(lambda: kernels.mutation_counts_sharded_plain(*args), reps=2,
-                warmup=1))
+                warmup=1),
+        4 * (n_rows * pw + pw + n_rows * len(engine.banks)), 2 * n_rows * pw,
+        len(engine.shards.distinct))
     log("8a kernels", f"sharded shapes bit-exact, max_abs_err "
         f"{ {k: err[k] for k in ('vm_run_sharded', 'mutation_counts_sharded')} }; "
-        f"vm_run_sharded {len(on_device)} programs, {inputs[1]} instructions, "
+        f"vm_run_sharded {len(on_device)} programs, {n_instr} instructions in "
+        f"{len(segments) - 1} segments, "
         f"{len(engine.banks)} shards of {engine.shards.local_words} words: "
         f"kernel {timings['vm_run_sharded'][0]:.4f} ms, plain "
         f"{timings['vm_run_sharded'][1]:.1f} ms; mutation_counts_sharded "
@@ -613,8 +692,8 @@ def phase8a(main: MainPath, kernels, torch, db, counts64, want64, muts,
             want_muts, err: dict, timings: dict) -> None:
     """Phase 5's corpus and answers on the sharded engine (the single-device
     engine already dropped), with the sharded kernels compared first."""
-    from lapis_silo_tpu.query.engine import Query
-    from lapis_silo_tpu.testing import sample_count_queries
+    from lapis_silo_torch.query.engine import Query
+    from lapis_silo_torch.testing import sample_count_queries
 
     wide = sample_count_queries(db, 512, seed=7)
     want_wide = [w["queryResult"][0]["count"] for w in oracle(db, wide)]
@@ -672,8 +751,8 @@ def main() -> int:
     device = torch.device(DEVICE)
 
     import lapis_silo_torch
-    from lapis_silo_tpu.query.engine import Query
-    from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+    from lapis_silo_torch.query.engine import Query
+    from lapis_silo_torch.testing import sample_count_queries, synthetic_database
     from lapis_silo_torch.ops import kernels, vm
 
     if ROOT not in Path(lapis_silo_torch.__file__).resolve().parents:
@@ -710,15 +789,23 @@ def main() -> int:
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     on_device = [p for p in lowered
                  if engine.host_count(p, allow_interpret=False) is None]
-    code, n_instr, banks, dyns, rows, fulls, n_regs = engine.kernel_inputs(
-        engine.batch_args(on_device))
+    code, n_instr, banks, dyns, rows, fulls, n_regs, segments = (
+        engine.kernel_inputs(engine.batch_args(on_device)))
     vm_inputs = (code.to(device), n_instr, banks[0], dyns[0], rows[0],
-                 fulls[0], n_regs)
+                 fulls[0], n_regs, segments)
     got, want = kernels.vm_run(*vm_inputs), kernels.vm_run_plain(*vm_inputs)
     err["vm_run"] = max(err["vm_run"], *map(max_abs_err, got, want))
     vm_ms = cuda_ms(lambda: kernels.vm_run(*vm_inputs), reps=20)
     vm_plain_ms = cuda_ms(lambda: kernels.vm_run_plain(*vm_inputs), reps=2,
                           warmup=0)
+    # the same batch as one segment, the serial program: the same words and
+    # counts, and what the segments save
+    one_segment = kernels.vm_run(*vm_inputs[:-1])
+    err["vm_run"] = max(err["vm_run"], *map(max_abs_err, one_segment, got))
+    vm_one_ms = cuda_ms(lambda: kernels.vm_run(*vm_inputs[:-1]), reps=5)
+    vm_bytes, vm_ops = vm_work(vm, code, n_instr, {
+        vm.B_BANK: banks[0].shape[0], vm.B_DYN: dyns[0].shape[0],
+        vm.B_SPARSE: rows[0].shape[0]}, engine.n_flat_words, segments)
     mut_filter = engine.device_filter(
         Query(mutations_queries(db)[0]).filter).parts[0]
     meta = engine.segment_meta[("nuc", "main")]
@@ -741,8 +828,10 @@ def main() -> int:
         lambda: kernels.popcount_rows_and_filter_plain(*rows_args), reps=3,
         warmup=1)
     log("3 kernels", f"main-path shapes bit-exact, max_abs_err {err}; vm_run "
-        f"{len(on_device)} programs, {vm_inputs[1]} instructions, PW "
-        f"{engine.n_flat_words}: kernel {vm_ms:.4f} ms, plain "
+        f"{len(on_device)} programs, {n_instr} instructions in "
+        f"{len(segments) - 1} segments, PW {engine.n_flat_words}: kernel "
+        f"{vm_ms:.4f} ms (bound {bound(vm_bytes, vm_ops)[0]:.4f} ms, "
+        f"{vm_bytes / 1e6:.2f} MB), as one segment {vm_one_ms:.4f} ms, plain "
         f"{vm_plain_ms:.1f} ms; mutation_counts {meta['n_stored']} rows x "
         f"{engine.n_flat_words} words: kernel {mut_ms:.4f} ms "
         f"({meta['n_stored'] * engine.n_flat_words * 4 / mut_ms / 1e6:.0f} "
@@ -750,9 +839,15 @@ def main() -> int:
         f"{engine.n_rows} rows: kernel {rows_ms:.4f} ms, plain "
         f"{rows_plain_ms:.2f} ms")
     assert all(e == 0 for e in err.values()), err
-    timings = {"vm_run": (vm_ms, vm_plain_ms),
-               "mutation_counts": (mut_ms, mut_plain_ms),
-               "popcount_rows_and_filter": (rows_ms, rows_plain_ms)}
+    pw, n_stored = engine.n_flat_words, meta["n_stored"]
+    timings = {"vm_run": (vm_ms, vm_plain_ms, vm_bytes, vm_ops),
+               "mutation_counts": (mut_ms, mut_plain_ms,
+                                   4 * (n_stored * pw + pw + n_stored),
+                                   2 * n_stored * pw),
+               "popcount_rows_and_filter": (
+                   rows_ms, rows_plain_ms,
+                   4 * (engine.n_rows * pw + pw + engine.n_rows),
+                   2 * engine.n_rows * pw)}
 
     # 4: the main path at the bench default
     counts64 = sample_count_queries(db, 64, seed=1)
@@ -821,14 +916,19 @@ def main() -> int:
     assert all(n for name, n in main_path.launches.items()
                if name not in OFF_PATH), main_path.launches
     assert not any(main_path.plain.values()), main_path.plain
-    assert sys.modules.get("jax") is None and not loaded, loaded
+    assert not loaded, loaded
 
     print(nvidia_smi())
+    # no single PyTorch call computes any of these functions (torch has no
+    # popcount, no gather-VM, no CSR popcount or densify), so library_ms is
+    # null
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name], "launches": main_path.launches[k.name],
          "max_abs_err": err[k.name], "ms": timings[k.name][0],
-         "plain_ms": timings[k.name][1]}
+         "plain_ms": timings[k.name][1],
+         **dict(zip(("bound_ms", "bound_by"), bound(*timings[k.name][2:]))),
+         "library_ms": None}
         for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

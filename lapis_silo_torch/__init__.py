@@ -1,14 +1,16 @@
-"""LAPIS-SILO on PyTorch: the query engine's device layer ported to torch and
-hand-written CUDA kernels for NVIDIA Hopper.
+"""LAPIS-SILO on PyTorch: the query engine ported to torch and hand-written
+CUDA kernels for NVIDIA Hopper.
 
-The host layers (storage, snapshots, the JSON query language and its
-actions) are the reference package's, ``lapis_silo_tpu``, which they import
-without JAX. This package replaces the device layer: ``ops/`` holds the ISA,
-the lowering, the two-tier device engine and the kernels (``csrc/``), and
-``query/engine.py`` the query engine that drives them. No module here imports
-``jax``.
+The package stands alone. Its host layers are its own copies of the JAX
+package's (``common/``, ``config/``, ``storage/``, ``query/``, ``native.py``
+and the synthetic corpora of ``testing.py``); the JAX package,
+``lapis_silo_tpu``, stays the reference the port is tested against, and no
+module here imports it or ``jax``. ``ops/`` holds the ISA, the lowering, the
+two-tier device engine and the kernels (``csrc/``), and ``query/engine.py``
+the query engine that drives them.
 
-    db = lapis_silo_tpu.testing.synthetic_database(...)   # or a snapshot
+    from lapis_silo_torch.testing import synthetic_database
+    db = synthetic_database(65536, 29903)            # or a database of yours
     install(db, torch.device("cuda"))
     db.execute_query('{"action": {"type": "Aggregated"}, ...}')
 
@@ -28,10 +30,9 @@ from .query.engine import QueryEngine
 
 
 def install(db, device: torch.device, devices=None) -> DeviceEngine:
-    """Build the port's device engine for `db` on `device`, or sharded over
-    `devices` (two or more, repeats allowed, `device` their first), and
-    route ``db.execute_query`` through it (the seam of
-    ``lapis_silo_tpu/storage/database.py:98-104``)."""
+    """Build the port's device engine for `db` (a database of this package)
+    on `device`, or sharded over `devices` (two or more, repeats allowed,
+    `device` their first), and route ``db.execute_query`` through it."""
     engine = DeviceEngine(db, torch.device(device), devices=devices)
     db.device_engine = engine
     with db._engine_lock:

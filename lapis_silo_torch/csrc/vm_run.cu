@@ -13,31 +13,51 @@
 //     write; an operand in [-4096, 0) wraps by 4096 as the XLA scatter does,
 //     any other operand outside [0, 4096) is dropped.
 //
-// Layout: one CTA per kBlockW words, one word per thread. The register file
-// lives in shared memory as [n_regs + 1][kBlockW] u32; each thread touches
-// only its own column, so ALU instructions need no barrier. The instruction
-// stream is staged into shared memory kBlockW instructions at a time.
+// Segments: the program may come split into segments (seg_starts [n_seg+1];
+// none given: one segment, the whole program). Each segment runs on a zeroed
+// register file and its EMIT counts add to the other segments'; reg[0] is the
+// last segment's. A batch of independent queries (DeviceEngine.batch_args)
+// gives each self-contained query its own segment, so this equals the serial
+// run of the whole program.
 //
-// What bounds it on an H100: each instruction reads one row word per thread
-// from device memory, and the program is a serial chain, so a naive loop
-// pays the full load latency on every instruction. The loop loads the
-// memory operands of kPrefetch instructions first (they do not depend on the
-// registers) and then executes the kPrefetch instructions, so one latency is
-// paid per kPrefetch instructions. EMIT_COUNT costs one CTA barrier: each
-// warp reduces with __reduce_add_sync, thread 0 sums the warp partials into a
-// per-CTA counts table with "set" semantics, and at the end each CTA adds its
-// table into the global counts with atomicAdd (the sum over CTAs of the last
-// emitted value is the global count, so a repeated EMIT stays exact).
+// Layout: one warp per (segment, block of 128 words), four per CTA, each lane
+// holding 4 words (lane, lane + 32, lane + 64, lane + 96 of the block, so
+// every row load of the warp reads 128 contiguous bytes). A 512-query batch at
+// 2,048 words runs 449 x 16 warps instead of 16 CTAs that each walk the whole
+// program. A warp's register file lives in its own slice of shared memory as
+// [n_regs + 1][4][32] u32; a lane touches only its own columns, and the warps
+// of a CTA share nothing, so the kernel has no CTA barrier. The warp reads its
+// segment's code 32 instructions at a time, one per lane, and broadcasts each
+// with __shfl_sync.
+//
+// What bounds it on an H100: each instruction reads one row word per word of
+// the axis, so the least traffic is each distinct row read once (the rows of a
+// batch repeat across queries and mostly hit the 50 MB L2); each segment is a
+// serial chain, so a naive loop pays the full load latency on every
+// instruction. The loop loads the memory operands of kPrefetch instructions
+// first (they do not depend on the registers) and then executes them, so one
+// latency is paid per kPrefetch instructions, and the grid holds enough warps
+// to hide it behind other segments. Decoding an instruction is shared by a
+// lane's 4 words, which keeps the issue slots for loads and the ALU.
+// EMIT_COUNT is a warp reduction; lane 0 keeps the warp's list of (slot,
+// count) pairs with "set" semantics (a repeated slot overwrites its entry,
+// found by a ballot over 32 entries at a time), and at the end the warp adds
+// each entry into the global counts with atomicAdd: the sum over word blocks
+// of a segment's last value per slot, plus the other segments'. The list has
+// one entry per instruction of the longest segment at most (4,096 slots at
+// most), so a warp of a batch segment keeps a handful of entries instead of a
+// 4,096-slot table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockW = 128;     // words (and threads) per CTA
-constexpr int kWarps = kBlockW / 32;
-constexpr int kMaxBatch = 4096;  // EMIT_COUNT slots (vm.MAX_BATCH_QUERIES)
-constexpr int kPrefetch = 8;     // memory operands loaded ahead per chunk
+constexpr int kLaneWords = 4;                 // words per lane
+constexpr int kBlockW = 32 * kLaneWords;      // words per warp
+constexpr int kWarps = 4;                     // warps (segment blocks) per CTA
+constexpr int kMaxBatch = 4096;               // EMIT_COUNT slots (vm.MAX_BATCH_QUERIES)
+constexpr int kPrefetch = 8;                  // memory operands loaded ahead per chunk
 
 // wire layout (vm.pack_wire)
 __device__ __forceinline__ int wire_dst(int32_t s) { return s & 0x3F; }
@@ -52,120 +72,164 @@ __device__ __forceinline__ int64_t clip_row(int32_t operand, int64_t n_rows) {
   return r < n_rows ? r : n_rows - 1;
 }
 
-__global__ void __launch_bounds__(kBlockW) vm_run_kernel(
+__global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
     const int32_t* __restrict__ opers, const int32_t* __restrict__ specs,
-    int n_instr, const uint32_t* __restrict__ bank, int64_t n_rows,
-    const uint32_t* __restrict__ dyn, int64_t n_dyn,
+    int n_instr, const int32_t* __restrict__ seg_starts, int n_seg,
+    int list_cap, int64_t n_wblocks, const uint32_t* __restrict__ bank,
+    int64_t n_rows, const uint32_t* __restrict__ dyn, int64_t n_dyn,
     const uint32_t* __restrict__ sparse, int64_t n_sparse,
     const uint32_t* __restrict__ full, int64_t pw, int n_regs,
     uint32_t* __restrict__ words, int32_t* __restrict__ counts) {
   extern __shared__ uint32_t smem[];
-  uint32_t* regs = smem;                                      // [(n_regs+1) * kBlockW]
-  int32_t* counts_s = (int32_t*)(regs + (n_regs + 1) * kBlockW);  // [kMaxBatch]
-  int32_t* code_s = counts_s + kMaxBatch;                     // [2 * kBlockW]
-  int32_t* warp_sums = code_s + 2 * kBlockW;                  // [2 * kWarps]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t unit = (int64_t)blockIdx.x * kWarps + warp;
+  if (unit >= n_wblocks * n_seg) return;  // no CTA barrier follows
+  // word blocks vary fastest: a CTA's warps share the segment's code and
+  // read neighbouring words of the same rows
+  const int64_t wblock = unit % n_wblocks;
+  const int seg = (int)(unit / n_wblocks);
+  const int lo = seg_starts ? seg_starts[seg] : 0;
+  const int hi = seg_starts ? seg_starts[seg + 1] : n_instr;
 
-  const int tid = threadIdx.x;
-  const int64_t w = (int64_t)blockIdx.x * kBlockW + tid;
-  const bool live = w < pw;  // threads past the ragged edge load nothing,
-                             // so their registers stay 0
-  const uint32_t fw = live ? full[w] : 0u;
-  for (int r = 0; r <= n_regs; ++r) regs[r * kBlockW + tid] = 0u;
-  for (int i = tid; i < kMaxBatch; i += kBlockW) counts_s[i] = 0;
-  int emits = 0;
+  // this warp's slice: registers [(n_regs + 1) * kBlockW], then the list
+  uint32_t* regs = smem + (size_t)warp * ((n_regs + 1) * kBlockW + 2 * list_cap);
+  int32_t* list_slot = (int32_t*)(regs + (n_regs + 1) * kBlockW);
+  int32_t* list_val = list_slot + list_cap;
+  int list_len = 0;  // the same in every lane
 
-  for (int tile = 0; tile < n_instr; tile += kBlockW) {
-    const int n_tile = min(kBlockW, n_instr - tile);
-    __syncthreads();  // the previous tile's code is consumed
-    if (tid < n_tile) {
-      code_s[tid] = opers[tile + tid];
-      code_s[kBlockW + tid] = specs[tile + tid];
-    }
-    __syncthreads();
+  // the lane's words are w0 + 32 k; those past the ragged edge load
+  // nothing, so their registers stay 0
+  const int64_t w0 = wblock * kBlockW + lane;
+  uint32_t fw[kLaneWords];
+#pragma unroll
+  for (int k = 0; k < kLaneWords; ++k) {
+    fw[k] = w0 + k * 32 < pw ? full[w0 + k * 32] : 0u;
+  }
+  for (int i = lane; i < (n_regs + 1) * kBlockW; i += 32) regs[i] = 0u;
+  __syncwarp();
+
+  for (int tile = lo; tile < hi; tile += 32) {
+    const int n_tile = min(32, hi - tile);
+    const int32_t my_oper = lane < n_tile ? opers[tile + lane] : 0;
+    const int32_t my_spec = lane < n_tile ? specs[tile + lane] : 0;
     for (int base = 0; base < n_tile; base += kPrefetch) {
-      uint32_t bv[kPrefetch];
+      int32_t oper[kPrefetch], spec[kPrefetch];
+      uint32_t bv[kPrefetch][kLaneWords];
 #pragma unroll
       for (int u = 0; u < kPrefetch; ++u) {
-        const int i = base + u;
-        bv[u] = 0u;
-        if (i < n_tile && live) {
-          const int32_t operand = code_s[i];
-          const int bsrc = wire_bsrc(code_s[kBlockW + i]);
-          if (bsrc == 1) {
-            bv[u] = __ldg(bank + clip_row(operand, n_rows) * pw + w);
-          } else if (bsrc == 2) {
-            bv[u] = __ldg(dyn + clip_row(operand, n_dyn) * pw + w);
-          } else if (bsrc == 3) {
-            bv[u] = __ldg(sparse + clip_row(operand, n_sparse) * pw + w);
-          } else if (bsrc == 4) {
-            bv[u] = fw;
-          }
+        oper[u] = __shfl_sync(0xffffffffu, my_oper, (base + u) & 31);
+        spec[u] = __shfl_sync(0xffffffffu, my_spec, (base + u) & 31);
+        const int bsrc = base + u < n_tile ? wire_bsrc(spec[u]) : 0;
+        const uint32_t* row = nullptr;
+        if (bsrc == 1) {
+          row = bank + clip_row(oper[u], n_rows) * pw;
+        } else if (bsrc == 2) {
+          row = dyn + clip_row(oper[u], n_dyn) * pw;
+        } else if (bsrc == 3) {
+          row = sparse + clip_row(oper[u], n_sparse) * pw;
+        }
+#pragma unroll
+        for (int k = 0; k < kLaneWords; ++k) {
+          const int64_t wk = w0 + k * 32;
+          bv[u][k] = row && wk < pw ? __ldg(row + wk)
+                                    : (bsrc == 4 ? fw[k] : 0u);
         }
       }
 #pragma unroll
       for (int u = 0; u < kPrefetch; ++u) {
-        const int i = base + u;
-        if (i >= n_tile) break;  // uniform across the CTA
-        const int32_t operand = code_s[i];
-        const int32_t spec = code_s[kBlockW + i];
-        const int ra = min(wire_ra(spec), n_regs - 1);
-        const uint32_t a = regs[ra * kBlockW + tid];
-        uint32_t b = bv[u];
-        if (wire_bsrc(spec) == 0) {
-          b = regs[min(wire_rb(spec), n_regs - 1) * kBlockW + tid];
-        }
-        uint32_t val;
-        switch (wire_mode(spec)) {
-          case 0: val = b; break;
-          case 1: val = a & b; break;
-          case 2: val = a | b; break;
-          case 3: val = a ^ b; break;
-          default: val = a & (b ^ fw); break;
-        }
-        regs[min(wire_dst(spec), n_regs) * kBlockW + tid] = val;
-        if (wire_opcode(spec) == 1) {  // EMIT_COUNT: uniform, so the barrier is safe
-          const int c = __reduce_add_sync(0xffffffffu, __popc(a));
-          // two partial buffers alternate, so one barrier per EMIT suffices:
-          // a buffer is rewritten two EMITs later, after the next barrier,
-          // which thread 0 passes only once it has read it
-          int32_t* sums = warp_sums + (emits & 1) * kWarps;
-          if ((tid & 31) == 0) sums[tid >> 5] = c;
-          __syncthreads();
-          if (tid == 0) {
-            int32_t total = 0;
-            for (int k = 0; k < kWarps; ++k) total += sums[k];
-            const int32_t oi = operand < 0 ? operand + kMaxBatch : operand;
-            if (oi >= 0 && oi < kMaxBatch) counts_s[oi] = total;
+        if (base + u >= n_tile) break;  // uniform across the warp
+        const int32_t s = spec[u];
+        const uint32_t* ra = regs + min(wire_ra(s), n_regs - 1) * kBlockW + lane;
+        const uint32_t* rb = regs + min(wire_rb(s), n_regs - 1) * kBlockW + lane;
+        uint32_t* rd = regs + min(wire_dst(s), n_regs) * kBlockW + lane;
+        const bool b_reg = wire_bsrc(s) == 0;
+        const int mode = wire_mode(s);
+        uint32_t a[kLaneWords];
+#pragma unroll
+        for (int k = 0; k < kLaneWords; ++k) {
+          a[k] = ra[k * 32];
+          const uint32_t b = b_reg ? rb[k * 32] : bv[u][k];
+          uint32_t val;
+          switch (mode) {
+            case 0: val = b; break;
+            case 1: val = a[k] & b; break;
+            case 2: val = a[k] | b; break;
+            case 3: val = a[k] ^ b; break;
+            default: val = a[k] & (b ^ fw[k]); break;
           }
-          ++emits;
+          rd[k * 32] = val;
+        }
+        if (wire_opcode(s) == 1) {  // EMIT_COUNT, uniform across the warp
+          int bits = 0;
+#pragma unroll
+          for (int k = 0; k < kLaneWords; ++k) bits += __popc(a[k]);
+          const int32_t total = __reduce_add_sync(0xffffffffu, bits);
+          const int32_t oi = oper[u] < 0 ? oper[u] + kMaxBatch : oper[u];
+          if (oi >= 0 && oi < kMaxBatch) {
+            int found = -1;
+            for (int k0 = 0; k0 < list_len; k0 += 32) {
+              const unsigned hit = __ballot_sync(
+                  0xffffffffu,
+                  k0 + lane < list_len && list_slot[k0 + lane] == oi);
+              if (hit) {
+                found = k0 + __ffs(hit) - 1;
+                break;
+              }
+            }
+            if (found < 0) found = list_len++;
+            if (lane == 0) {
+              list_slot[found] = oi;
+              list_val[found] = total;
+            }
+            __syncwarp();
+          }
         }
       }
     }
   }
-  __syncthreads();
-  if (live) words[w] = regs[tid];
-  for (int i = tid; i < kMaxBatch; i += kBlockW) {
-    const int32_t v = counts_s[i];
-    if (v) atomicAdd(counts + i, v);
+  __syncwarp();
+  if (seg == n_seg - 1) {
+#pragma unroll
+    for (int k = 0; k < kLaneWords; ++k) {
+      if (w0 + k * 32 < pw) words[w0 + k * 32] = regs[k * 32 + lane];
+    }
+  }
+  for (int k = lane; k < list_len; k += 32) {
+    const int32_t v = list_val[k];
+    if (v) atomicAdd(counts + list_slot[k], v);
   }
 }
 
 }  // namespace
 
-// C interface, bound with ctypes (lapis_silo_torch/ops/kernels.py). `counts`
-// must be zeroed by the caller. Returns cudaGetLastError() after the launch.
+// C interface, bound with ctypes (lapis_silo_torch/ops/kernels.py).
+// `seg_starts` holds n_seg + 1 non-decreasing starts from 0 to n_instr, or is
+// null for one segment; `list_cap` is at least the number of distinct EMIT
+// slots of any segment (its longest segment's length serves). `counts` must
+// be zeroed by the caller. Returns cudaGetLastError() after the launch.
 extern "C" int lapis_vm_run(const void* opers, const void* specs, int n_instr,
+                            const void* seg_starts, int n_seg, int list_cap,
                             const void* bank, long long n_rows,
                             const void* dyn, long long n_dyn,
                             const void* sparse, long long n_sparse,
                             const void* full, long long pw, int n_regs,
                             void* words, void* counts, void* stream) {
-  if (pw <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(uint32_t) *
-      ((size_t)(n_regs + 1) * kBlockW + kMaxBatch + 2 * kBlockW + 2 * kWarps);
-  const unsigned grid = (unsigned)((pw + kBlockW - 1) / kBlockW);
-  vm_run_kernel<<<grid, kBlockW, smem, (cudaStream_t)stream>>>(
+  if (pw <= 0 || n_seg <= 0) return (int)cudaGetLastError();
+  const long long n_wblocks = (pw + kBlockW - 1) / kBlockW;
+  const long long n_ctas = (n_wblocks * n_seg + kWarps - 1) / kWarps;
+  if (n_ctas > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(uint32_t) * kWarps *
+      ((size_t)(n_regs + 1) * kBlockW + 2 * (size_t)list_cap);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vm_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  vm_run_kernel<<<(unsigned)n_ctas, 32 * kWarps, smem,
+                  (cudaStream_t)stream>>>(
       (const int32_t*)opers, (const int32_t*)specs, n_instr,
+      (const int32_t*)seg_starts, n_seg, list_cap, n_wblocks,
       (const uint32_t*)bank, n_rows, (const uint32_t*)dyn, n_dyn,
       (const uint32_t*)sparse, n_sparse, (const uint32_t*)full, pw, n_regs,
       (uint32_t*)words, (int32_t*)counts);

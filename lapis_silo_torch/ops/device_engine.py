@@ -21,7 +21,9 @@ watcher and the fast path):
   padding are Mosaic workarounds and are gone.
 - A filter lowers to a register-machine program (``ops/lowering.py``); a
   batch of count queries concatenates into one program with one EMIT_COUNT
-  per query and runs as ONE launch of the VM kernel. B_SPARSE operands name
+  per query and runs as ONE launch of the VM kernel, each self-contained
+  query in a segment of its own that the kernel runs beside the others
+  (``batch_args``). B_SPARSE operands name
   sparse leaves: before the VM launch, missed leaves are densified into rows
   of the hot-leaf pool ``[C + 1, PW]`` (an SLRU cache of leaf rows) and the
   VM reads the pool; without the pool, or on the cold-sweep bypass, the
@@ -62,12 +64,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lapis_silo_tpu.ops import bitset
-
 from ..parallel.shards import (
     ShardLayout, gather_words, reduce_sum, resolve, split_words,
 )
-from . import kernels, lowering
+from . import bitset, kernels, lowering
 from .reductions import clip_bounds, entry_chunks, popcount_words
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
@@ -101,8 +101,10 @@ class BankState:
 class VmArgs(NamedTuple):
     """One VM launch, on the host: the wire code block [2, bucket], the
     instruction count to run (rounded), the dyn rows (per dyn leaf, per
-    partition words), the dyn bucket, the register bucket, and the sparse
-    leaves (global sparse-row ids) that B_SPARSE operands index."""
+    partition words), the dyn bucket, the register bucket, the sparse
+    leaves (global sparse-row ids) that B_SPARSE operands index, and the
+    segment starts (int32 [n_seg + 1], the last n_instr; None: the whole
+    program is one segment) that kernels.vm_run runs apart."""
 
     code: np.ndarray
     n_instr: int
@@ -110,6 +112,7 @@ class VmArgs(NamedTuple):
     n_dyn: int
     n_regs: int
     sparse_leaves: list
+    seg_starts: np.ndarray | None = None
 
 
 def _segments(database) -> list[tuple[str, str]]:
@@ -741,14 +744,20 @@ class DeviceEngine:
         EMIT_COUNT of reg[0] into its query's slot; dyn operands rebased onto
         the merged dyn rows, and sparse leaves deduplicated across the batch
         (queries in a batch often share leaves). Packed once: per-program
-        packing costs numpy small-array overhead per query."""
+        packing costs numpy small-array overhead per query. Every
+        self-contained program (_Program.self_contained) starts a VM segment
+        of its own, which the kernel runs apart on fresh registers; any
+        other program joins the segment before it."""
         flat_ops: list[int] = []
         flat_opers: list[int] = []
         flat_spec: list[int] = []
         dyn_rows: list = []
         sparse_leaves: list[int] = []
         sparse_slots: dict[int, int] = {}  # global sparse row -> merged slot
+        seg_starts = [0]
         for qi, program in enumerate(lowered):
+            if qi and program.self_contained:
+                seg_starts.append(len(flat_ops))
             dyn_base = len(dyn_rows)
             operands = list(program.operands)
             if dyn_base or program.sparse_leaves:
@@ -781,8 +790,10 @@ class DeviceEngine:
         n_dyn = next(b for b in _DYN_BUCKETS if b >= len(dyn_rows))
         n_regs = next(b for b in _REG_BUCKETS
                       if b >= max(p.max_regs for p in lowered))
-        return VmArgs(code, _round_instr(len(flat_ops)), dyn_rows, n_dyn,
-                      n_regs, sparse_leaves)
+        n_instr = _round_instr(len(flat_ops))
+        seg_starts.append(n_instr)  # the NOP tail joins the last segment
+        return VmArgs(code, n_instr, dyn_rows, n_dyn, n_regs, sparse_leaves,
+                      np.asarray(seg_starts, dtype=np.int32))
 
     def _dyn_tensor(self, dyn_rows: list, n_dyn: int) -> list[torch.Tensor]:
         """[n_dyn, PW/D] dyn rows per shard on its device (a cached zero
@@ -808,14 +819,14 @@ class DeviceEngine:
                       ) -> tuple:
         """The positional arguments of kernels.vm_run_sharded for one
         launch: the code block's first n_instr columns, the dyn rows
-        uploaded, and the rows B_SPARSE operands read (`sparse_rows`, one
-        tensor per shard; one zero row for programs without sparse
-        leaves)."""
+        uploaded, the rows B_SPARSE operands read (`sparse_rows`, one
+        tensor per shard; one zero row for programs without sparse leaves),
+        and the segment starts."""
         code = torch.from_numpy(np.ascontiguousarray(args.code[:, :args.n_instr]))
         dyns = self._dyn_tensor(args.dyn_rows, args.n_dyn)
         rows = self._sparse_zero if sparse_rows is None else sparse_rows
         return (code, args.n_instr, self.banks, dyns, rows, self.fulls,
-                args.n_regs)
+                args.n_regs, args.seg_starts)
 
     def _vm(self, args: VmArgs, sparse_rows: list | None = None,
             ) -> tuple[list, torch.Tensor]:

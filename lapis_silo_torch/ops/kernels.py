@@ -6,7 +6,8 @@ bank, each in ``csrc/`` (TPU kernels in
 the forms the TPU package wrote as kernels of their own:
 
 - ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing ``:526``
-  ``vm_run``;
+  ``vm_run``; a program may come in segments (a batch's queries) that run
+  side by side;
 - ``mutation_counts`` (``csrc/mutation_counts.cu``): popcount(row & filter)
   per dense bank row, replacing ``:150`` ``mutation_counts_banked`` (naive
   form);
@@ -48,6 +49,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..parallel.shards import reduce_sum
@@ -118,8 +120,8 @@ _lib = None
 _lib_lock = threading.Lock()
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "lapis_vm_run": [_P, _P, _I32, _P, _I64, _P, _I64, _P, _I64, _P, _I64,
-                     _I32, _P, _P, _P],
+    "lapis_vm_run": [_P, _P, _I32, _P, _I32, _I32, _P, _I64, _P, _I64, _P,
+                     _I64, _P, _I64, _I32, _P, _P, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
                             _P],
@@ -236,16 +238,46 @@ def _check(name: str, tensor: torch.Tensor, device: torch.device,
         raise ValueError(f"{name}: shape {tuple(tensor.shape)}, want {shape}")
 
 
+def _upload(tensor: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`tensor` on `device`. A host tensor bound for a card goes through
+    pinned memory without blocking: a copy from pageable memory first
+    waits for the stream's queued work, which would serialise the host's
+    preparation of each launch with the card's run of the one before."""
+    if tensor.device == device:
+        return tensor
+    if device.type == "cuda" and tensor.device.type == "cpu":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
 # -- K1: the filter VM ------------------------------------------------------
+
+def _segment_starts(segments, n_instr: int) -> np.ndarray:
+    """`segments` checked as segment starts: int32 [n_seg + 1], 0 first,
+    `n_instr` last, non-decreasing (segment s runs instructions
+    [starts[s], starts[s + 1])). None is one segment, [0, n_instr]."""
+    if segments is None:
+        return np.asarray([0, n_instr], dtype=np.int32)
+    starts = np.asarray(segments)
+    if (starts.ndim != 1 or starts.shape[0] < 2
+            or not np.issubdtype(starts.dtype, np.integer)):
+        raise ValueError(f"segments: want int starts [n_seg + 1], got "
+                         f"{starts.dtype} {starts.shape}")
+    if starts[0] != 0 or starts[-1] != n_instr or (np.diff(starts) < 0).any():
+        raise ValueError(f"segments must rise from 0 to n_instr {n_instr}")
+    return starts.astype(np.int32)
+
 
 def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
            dyn: torch.Tensor, sparse_rows: torch.Tensor, full: torch.Tensor,
-           n_regs: int) -> tuple[torch.Tensor, torch.Tensor]:
+           n_regs: int, segments=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the first `n_instr` instructions of a wire-format program
     (code [2, L] int32: operands, packed words) over the flat word axis.
     bank [R, PW], dyn [D, PW], sparse_rows [K, PW] and full [PW] hold u32
-    words as int32. Returns (reg[0] words [PW], EMIT counts [4096]), both
-    int32 on the inputs' device."""
+    words as int32. `segments` (host ints, see _segment_starts; None: one
+    segment) splits the program into segments that each run on a zeroed
+    register file; their EMIT counts add. Returns (reg[0] words of the last
+    segment [PW], EMIT counts [4096]), both int32 on the inputs' device."""
     device = full.device
     pw = full.shape[0] if full.dim() == 1 else -1
     _check("full", full, device, (None,))
@@ -259,16 +291,25 @@ def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
         raise ValueError(f"n_regs {n_regs} outside [1, {MAX_REGS}]")
     if min(bank.shape[0], dyn.shape[0], sparse_rows.shape[0]) < 1:
         raise ValueError("bank, dyn and sparse_rows need one row at least")
+    starts = _segment_starts(segments, n_instr)
     if device.type == "cpu":
-        return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs)
+        return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
+                            starts)
     if device.type != "cuda":
         raise ValueError(f"vm_run: no kernel for device {device}")
     lib = load_library()
     words = torch.empty(pw, dtype=torch.int32, device=device)
     counts = torch.zeros(MAX_BATCH_QUERIES, dtype=torch.int32, device=device)
+    # one segment needs no starts on the card; the EMIT list of a warp
+    # holds at most one entry per instruction of its segment
+    starts_dev = (None if segments is None
+                  else _upload(torch.from_numpy(starts), device))
+    max_len = int(np.diff(starts).max())
     with torch.cuda.device(device):
         err = lib.lapis_vm_run(
             code.data_ptr(), code[1].data_ptr(), n_instr,
+            None if starts_dev is None else starts_dev.data_ptr(),
+            starts.shape[0] - 1, min(max(max_len, 1), MAX_BATCH_QUERIES),
             bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
             sparse_rows.data_ptr(), sparse_rows.shape[0], full.data_ptr(), pw,
             n_regs, words.data_ptr(), counts.data_ptr(),
@@ -280,18 +321,34 @@ def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
 
 def vm_run_plain(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
                  dyn: torch.Tensor, sparse_rows: torch.Tensor,
-                 full: torch.Tensor, n_regs: int):
+                 full: torch.Tensor, n_regs: int, segments=None):
     """The plain PyTorch version of vm_run: one Python step per instruction,
     with the clamping and EMIT semantics of the XLA interpreter
-    (lapis_silo_tpu/ops/vm.py:625-710), described in csrc/vm_run.cu."""
+    (lapis_silo_tpu/ops/vm.py:625-710), described in csrc/vm_run.cu; each
+    segment from fresh registers, its counts added to the others'."""
     VM_RUN.add(plain=True)
+    starts = _segment_starts(segments, n_instr).tolist()
     pw = full.shape[0]
-    regs = torch.zeros((n_regs + 1, pw), dtype=torch.int32, device=full.device)
     counts = torch.zeros(MAX_BATCH_QUERIES, dtype=torch.int32,
                          device=full.device)
     rows = {B_BANK: bank, B_DYN: dyn, B_SPARSE: sparse_rows}
     operands = code[0, :n_instr].tolist()
     specs = code[1, :n_instr].tolist()
+    for lo, hi in zip(starts, starts[1:]):
+        regs = torch.zeros((n_regs + 1, pw), dtype=torch.int32,
+                           device=full.device)
+        seg_counts = torch.zeros_like(counts)
+        _run_segment(operands[lo:hi], specs[lo:hi], regs, seg_counts, rows,
+                     full, n_regs)
+        counts += seg_counts
+    return regs[0].clone(), counts
+
+
+def _run_segment(operands: list, specs: list, regs: torch.Tensor,
+                 counts: torch.Tensor, rows: dict, full: torch.Tensor,
+                 n_regs: int) -> None:
+    """vm_run_plain's interpreter over one segment, in place on `regs`
+    [n_regs + 1, PW] and `counts` [4096]."""
     for operand, spec in zip(operands, specs):
         dst = spec & WIRE_DST_MASK
         ra = (spec >> WIRE_RA_SHIFT) & 0x3F
@@ -325,7 +382,6 @@ def vm_run_plain(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
             if 0 <= slot < MAX_BATCH_QUERIES:
                 counts[slot] = popcount(a).sum()
         regs[min(dst, n_regs)] = val
-    return regs[0].clone(), counts
 
 
 def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
@@ -342,23 +398,24 @@ def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
 
 def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
                    dyns: list, sparse_rows: list, fulls: list,
-                   n_regs: int) -> tuple[list, torch.Tensor]:
+                   n_regs: int, segments=None) -> tuple[list, torch.Tensor]:
     """vm_run on every word shard: shard d's bank [R, PW/D], dyn rows, sparse
     rows and full mask lie on its device, and K1 runs there on that device's
     current stream (the VM is word-local). `code` is copied once to each
     distinct device. Every shard's EMIT counts hold the popcount of its own
-    words at a query's last EMIT, so their sum, taken on the first shard's
-    device, is the global count (the psum of pallas_kernels.py:763).
-    Returns (reg[0] words per shard, counts [4096] int32)."""
+    words at a query's last EMIT in each segment, so their sum, taken on the
+    first shard's device, is the global count (the psum of
+    pallas_kernels.py:763). Returns (reg[0] words per shard, counts [4096]
+    int32)."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
     codes = {}
     words, counts = [], []
     for device, bank, dyn, rows, full in zip(devices, banks, dyns,
                                              sparse_rows, fulls):
         if device not in codes:
-            codes[device] = code.to(device)
+            codes[device] = _upload(code, device)
         shard_words, shard_counts = vm_run(codes[device], n_instr, bank, dyn,
-                                           rows, full, n_regs)
+                                           rows, full, n_regs, segments)
         words.append(shard_words)
         counts.append(shard_counts)
     VM_RUN_SHARDED.add(plain=devices[0].type == "cpu")
@@ -367,13 +424,13 @@ def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
 
 def vm_run_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
                          dyns: list, sparse_rows: list, fulls: list,
-                         n_regs: int) -> tuple[list, torch.Tensor]:
+                         n_regs: int, segments=None) -> tuple[list, torch.Tensor]:
     """The plain PyTorch version of vm_run_sharded: vm_run_plain per shard
     and the same sum."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
     VM_RUN_SHARDED.add(plain=True)
     outs = [vm_run_plain(code.to(device), n_instr, bank, dyn, rows, full,
-                         n_regs)
+                         n_regs, segments)
             for device, bank, dyn, rows, full in zip(devices, banks, dyns,
                                                      sparse_rows, fulls)]
     return ([words for words, _ in outs],

@@ -1,8 +1,8 @@
 """Filter-IR -> register-machine lowering.
 
 The port of ``lapis_silo_tpu/ops/lowering.py`` against the port's own ISA
-(``ops/vm.py``). It compiles the per-partition IR (``lapis_silo_tpu.query.ir``,
-which is pure Python) into one partition-uniform VM program: static bank leaf
+(``ops/vm.py``). It compiles the per-partition IR (``query/ir.py``) into one
+partition-uniform VM program: static bank leaf
 loads, host-evaluated dynamic rows, implicit-majority reconstruction (NOT of
 OR(siblings)), and the N-Of bit-sliced threshold adder circuit.
 ``tests/test_torch_lowering.py`` holds its code arrays, dyn rows and register
@@ -11,9 +11,8 @@ counts bit-equal to the reference's.
 
 from __future__ import annotations
 
-from lapis_silo_tpu.query import ast, ir
-from lapis_silo_tpu.query.ir import HostEvaluator
-
+from ..query import ast, ir
+from ..query.ir import HostEvaluator
 from .vm import (
     B_BANK, B_DYN, B_FULL, B_SPARSE, B_ZERO,
     M_AND, M_ANDN, M_MOVB, M_OR, M_XOR, MAX_REGS,

@@ -1,31 +1,73 @@
-"""The reference's query engine, driving the port's device engine.
+"""Query engine driver.
 
-``lapis_silo_tpu.query.engine.QueryEngine`` builds its JAX DeviceEngine
-lazily, turns its device path off for good on ``ImportError`` or
-``NotImplementedError``, and imports the JAX device engine to recognise the
-host-fallback exceptions. This subclass overrides the three methods that do
-so: the device engine is given at construction, only the port's
-``ProgramTooLarge`` / ``StructureMismatch`` fall back to the host (for that
-query only, as in the reference), and every other failure raises.
+Parity with reference src/silo/query_engine/query_engine.cpp: parse the JSON
+query, compile the filter per partition, evaluate to packed bitsets, hand
+them to the action. The port's copy of the JAX package's engine
+(``lapis_silo_tpu/query/engine.py``), with its device engine given at
+construction instead of built lazily: ``install()`` in the package's
+``__init__`` builds the device engine and hands it over. Only the port's
+``ProgramTooLarge`` / ``StructureMismatch`` fall back to the host, for that
+query only; every other failure raises.
 """
 
 from __future__ import annotations
 
-from lapis_silo_tpu.query import ast
-from lapis_silo_tpu.query.actions import Aggregated, Mutations
-from lapis_silo_tpu.query.engine import Query
-from lapis_silo_tpu.query.engine import QueryEngine as _ReferenceQueryEngine
-from lapis_silo_tpu.query.ir import HostEvaluator
+import json
+import logging
+import time
 
 from ..ops.vm import ProgramTooLarge, StructureMismatch
+from . import ast
+from .actions import Aggregated, Mutations, parse_action
+from .errors import QueryParseError
+from .ir import HostEvaluator
+
+performance_logger = logging.getLogger("lapis_silo_torch.performance")
 
 _HOST_FALLBACK = (ProgramTooLarge, StructureMismatch)
 
 
-class QueryEngine(_ReferenceQueryEngine):
-    def __init__(self, database, device_engine):
-        super().__init__(database, use_device=True)
+class Query:
+    def __init__(self, query_string: str):
+        def _reject_constant(name):
+            # nlohmann rejects NaN/Infinity literals that Python's json
+            # accepts by default; force the reference behavior
+            raise ValueError(f"invalid constant {name}")
+
+        try:
+            data = json.loads(query_string, parse_constant=_reject_constant)
+        except ValueError as ex:
+            # reference query.cpp:24-26 wraps nlohmann's ex.what(); replicate
+            # its exact message text (query/nlohmann_errors.py)
+            from .nlohmann_errors import parse_error_message
+
+            message = parse_error_message(query_string) or str(ex)
+            raise QueryParseError(
+                f"The query was not a valid JSON: {message}") from ex
+        if (
+            not isinstance(data, dict)
+            or not isinstance(data.get("filterExpression"), dict)
+            or not isinstance(data.get("action"), dict)
+        ):
+            raise QueryParseError("Query json must contain filterExpression and action.")
+        self.filter = ast.parse_expression(data["filterExpression"])
+        self.action = parse_action(data["action"])
+        # canonical key for the device engine's lowered-program cache:
+        # serving workloads repeat filters, and lowering walks every
+        # partition in pure Python
+        self.filter_key = json.dumps(
+            data["filterExpression"], sort_keys=True, separators=(",", ":"))
+
+
+class QueryEngine:
+    """Executes JSON queries on `database`: on `device_engine` (the port's
+    ``ops.device_engine.DeviceEngine``) when one is given and `use_device`
+    is true, else on the host evaluator alone (the oracle)."""
+
+    def __init__(self, database, device_engine=None, use_device: bool = True):
+        self.database = database
         self._device_engine = device_engine
+        self._use_device = use_device and device_engine is not None
 
     def _evaluate_filter(self, query: Query) -> list:
         """Compile + evaluate the filter -> per-partition packed bitsets."""
@@ -33,7 +75,7 @@ class QueryEngine(_ReferenceQueryEngine):
             try:
                 return self._device_engine.evaluate_compact(query.filter)
             except _HOST_FALLBACK:
-                pass
+                pass  # host fallback for this query only
         db = self.database
         results = []
         for partition in db.partitions:
@@ -41,8 +83,28 @@ class QueryEngine(_ReferenceQueryEngine):
             results.append(HostEvaluator(partition.sequence_count).evaluate(node))
         return results
 
+    def execute(self, query_string: str) -> dict:
+        query = Query(query_string)
+        t0 = time.perf_counter()
+        fast = self._try_fast_count(query)
+        if fast is not None:
+            return fast
+        bitmaps = self._device_filter_for_mutations(query)
+        if bitmaps is None:
+            bitmaps = self._evaluate_filter(query)
+        t1 = time.perf_counter()
+        rows = query.action.execute_and_order(self.database, bitmaps)
+        t2 = time.perf_counter()
+        performance_logger.info(
+            "filter time [microseconds]: %d, action time [microseconds]: %d",
+            int((t1 - t0) * 1e6),
+            int((t2 - t1) * 1e6),
+        )
+        return {"queryResult": rows}
+
     def _device_filter_for_mutations(self, query: Query):
-        """Mutations keeps its filter on the device (a DeviceFilter)."""
+        """Mutations keeps its filter on the device (a DeviceFilter): it
+        needs only device reductions."""
         if not (self._use_device and isinstance(query.action, Mutations)):
             return None
         try:

@@ -1,7 +1,9 @@
 """The port's device engine and query engine, end to end on the CPU, against
 the JAX package: the same resident state, the same query results through
-``db.execute_query``, and the fuzzed device==host check. All results are
-integers or exact bitsets: the tolerance is equality."""
+``db.execute_query``, and the fuzzed device==host check. Each package serves
+its own corpus, built by its own ``testing.synthetic_database`` from the same
+seed. All results are integers or exact bitsets: the tolerance is
+equality."""
 
 import json
 import os
@@ -16,16 +18,18 @@ import pytest
 import torch
 
 import lapis_silo_torch
+from lapis_silo_tpu import testing as ref_testing
 from lapis_silo_tpu.ops import device_engine as ref_de
-from lapis_silo_tpu.query import ast
-from lapis_silo_tpu.query.engine import Query, QueryEngine
-from lapis_silo_tpu.query.ir import HostEvaluator
-from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
-from lapis_silo_torch.ops import kernels
+from lapis_silo_tpu.ops import vm as ref_vm
+from lapis_silo_torch.ops import kernels, vm
 from lapis_silo_torch.ops.device_engine import (
     DeviceEngine, build_state, state_from_reference,
 )
 from lapis_silo_torch.ops.vm import ProgramTooLarge, StructureMismatch
+from lapis_silo_torch.query import ast
+from lapis_silo_torch.query.engine import Query, QueryEngine
+from lapis_silo_torch.query.ir import HostEvaluator
+from lapis_silo_torch.testing import sample_count_queries, synthetic_database
 
 from .test_fuzz_filters import ALL_EXPRESSION_TYPES, random_filter
 
@@ -57,7 +61,10 @@ def _mutations_queries(db, n):
 @pytest.mark.parametrize("rich", [False, True])
 def test_state_from_reference_equals_own_build(rich):
     db = synthetic_database(1500, 300, n_partitions=3, seed=2, rich=rich)
-    ref = ref_de.DeviceEngine(db, devices=jax.devices()[:1])
+    ref = ref_de.DeviceEngine(
+        ref_testing.synthetic_database(1500, 300, n_partitions=3, seed=2,
+                                       rich=rich),
+        devices=jax.devices()[:1])
     converted = state_from_reference(np.asarray(ref.bank),
                                      np.asarray(ref.full_masks),
                                      ref.segment_meta, CPU)
@@ -80,7 +87,7 @@ def test_slice_end_to_end_matches_jax_engine():
     """Two corpora from one seed: one served by the JAX package's engine,
     one by the port after install(); 64 counts and 4 Mutations queries give
     identical result dicts, and the port's path ran its kernels' wrappers."""
-    ref_db = synthetic_database(3000, 600, n_partitions=2, seed=21)
+    ref_db = ref_testing.synthetic_database(3000, 600, n_partitions=2, seed=21)
     port_db = synthetic_database(3000, 600, n_partitions=2, seed=21)
     lapis_silo_torch.install(port_db, CPU)
     # a filter past the instruction cap: both engines evaluate it on the
@@ -90,8 +97,8 @@ def test_slice_end_to_end_matches_jax_engine():
         "filterExpression": {"type": "Or", "children": [
             {"type": "HasNucleotideMutation", "position": p}
             for p in range(1, 600)]}})
-    queries = (sample_count_queries(ref_db, 64, seed=8)
-               + _mutations_queries(ref_db, 4) + [wide])
+    queries = (sample_count_queries(port_db, 64, seed=8)
+               + _mutations_queries(port_db, 4) + [wide])
     kernels.reset_counts()
     for query in queries:
         assert port_db.execute_query(query) == ref_db.execute_query(query), query
@@ -162,16 +169,118 @@ def test_wide_batches_split_and_stay_exact(max_bucket, n_dyn_leaves):
                                dispatches) == want
 
 
+def _xla_whole_program(engine, args, sparse_rows) -> tuple:
+    """The reference's XLA interpreter over the whole concatenated program
+    of VmArgs `args`, its dyn and sparse rows zero-padded to fixed counts
+    (operands index below them) so that few shapes compile: (reg[0] words,
+    counts [4096])."""
+    code, n_instr, banks, dyns, rows, fulls, n_regs, _starts = (
+        engine.kernel_inputs(args, sparse_rows))
+    pw = engine.n_flat_words
+
+    def host(tensor, n_pad=None):
+        words = tensor.numpy().view(np.uint32)
+        if n_pad is None:
+            return words
+        out = np.zeros((n_pad, pw), dtype=np.uint32)
+        out[: words.shape[0]] = words
+        return out
+
+    n_pad = 256 if rows[0].shape[0] <= 256 else 1024
+    bank, dyn, sparse = (host(banks[0]), host(dyns[0], 256),
+                         host(rows[0], n_pad))
+    blob = np.append(args.code.reshape(-1), np.int32(n_instr))
+    return tuple(np.asarray(ref_vm._interpreter(
+        args.code.shape[1], bank.shape[0], 256, n_pad, pw, output,
+        n_regs=n_regs)(blob, bank, dyn, sparse, host(fulls[0])))
+        for output in ("words", "multi_count"))
+
+
+@pytest.mark.parametrize("tier", ["dense", "two_tier"])
+def test_batch_segments_match_xla_whole_program(tier, monkeypatch):
+    """Fuzzed filters (tests/test_fuzz_filters.py's generator) batched by
+    batch_args: every lowered program is self-contained, so each query gets
+    a segment of its own, and the segmented plain VM gives the words and
+    counts of the reference's XLA interpreter running the whole
+    concatenated program serially (two-tier: over the densified rows)."""
+    monkeypatch.setenv("SILO_LEAF_POOL", "0")
+    db = synthetic_database(999, 333, n_partitions=3, seed=7, rich=True)
+    engine = DeviceEngine(db, CPU,
+                          sparse_min_words=1 if tier == "two_tier" else None)
+    assert (engine.n_sparse > 0) == (tier == "two_tier")
+    rng = random.Random(5)
+    lowered = []
+    while len(lowered) < 96:
+        query = Query(json.dumps({"filterExpression": random_filter(rng, db),
+                                  "action": {"type": "Aggregated"}}))
+        try:
+            lowered.append(engine.lower(query.filter)[0])
+        except (ProgramTooLarge, StructureMismatch):
+            continue
+    assert all(program.self_contained for program in lowered)
+    n_sparse = 0
+    for i in range(0, len(lowered), 12):
+        batch = lowered[i: i + 12]
+        args = engine.batch_args(batch)
+        assert len(args.seg_starts) == len(batch) + 1
+        assert args.seg_starts[-1] == args.n_instr
+        rows = (engine._densified(args.sparse_leaves) if args.sparse_leaves
+                else None)
+        n_sparse += len(args.sparse_leaves)
+        want_words, want_counts = _xla_whole_program(engine, args, rows)
+        code, n_instr, banks, dyns, sparse, fulls, n_regs, starts = (
+            engine.kernel_inputs(args, rows))
+        words, counts = kernels.vm_run_plain(code, n_instr, banks[0], dyns[0],
+                                             sparse[0], fulls[0], n_regs,
+                                             starts)
+        np.testing.assert_array_equal(counts.numpy(), want_counts)
+        np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                      want_words)
+    assert (n_sparse > 0) == (tier == "two_tier")
+
+
+def test_dependent_program_joins_the_segment_before_it():
+    """A batch whose second program reads a register the first one wrote:
+    the second joins the first's segment, a third self-contained program
+    starts its own, and the counts equal the XLA interpreter's serial run
+    (on a fresh register file the second would count 0)."""
+    db = synthetic_database(700, 150, n_partitions=2, seed=13)
+    engine = DeviceEngine(db, CPU)
+    first, second, third = (vm._Program() for _ in range(3))
+    first.load(1, vm.B_BANK, 3)
+    first.load(0, vm.B_BANK, 5)
+    second.alu(vm.M_AND, 0, 1, 1)  # reg[1] from the first program
+    third.load(0, vm.B_BANK, 3)
+    for program in (first, second, third):
+        program.max_regs = 2
+    assert [p.self_contained for p in (first, second, third)] == [
+        True, False, True]
+    args = engine.batch_args([first, second, third])
+    assert args.seg_starts.tolist() == [0, 5, args.n_instr]
+    want_words, want_counts = _xla_whole_program(engine, args, None)
+    code, n_instr, banks, dyns, rows, fulls, n_regs, starts = (
+        engine.kernel_inputs(args))
+    words, counts = kernels.vm_run_plain(code, n_instr, banks[0], dyns[0],
+                                         rows[0], fulls[0], n_regs, starts)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want_words)
+    row3 = int(engine._dense_row_counts[3])
+    assert row3 > 0 and counts[:3].tolist() == [
+        int(engine._dense_row_counts[5]), row3, row3]
+    (got, q), = engine.count_dispatches([first, second, third])
+    assert got[:q].tolist() == counts[:3].tolist()
+
+
 def test_concurrent_counts_coalesce_exactly():
     """Many threads through db.execute_query: the micro-batcher coalesces
     them into shared launches and every caller gets its own count."""
     import concurrent.futures
     import threading
 
+    ref_db = ref_testing.synthetic_database(800, 200, n_partitions=2, seed=17)
     db = synthetic_database(800, 200, n_partitions=2, seed=17)
     queries = sample_count_queries(db, 96, seed=9)
-    want = [db.execute_query(q) for q in queries]  # the JAX package's engine
-    db._engine = None
+    want = [ref_db.execute_query(q) for q in queries]  # the JAX package's engine
     lapis_silo_torch.install(db, CPU)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
@@ -234,8 +343,8 @@ import sys
 sys.modules["jax"] = None
 import json, torch
 import lapis_silo_torch
-from lapis_silo_tpu.query.engine import QueryEngine
-from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+from lapis_silo_torch.query.engine import QueryEngine
+from lapis_silo_torch.testing import sample_count_queries, synthetic_database
 db = synthetic_database(500, 120, n_partitions=2, seed=5)
 oracle = QueryEngine(db, use_device=False)
 mutations = json.dumps({"action": {"type": "Mutations", "minProportion": 0.0},

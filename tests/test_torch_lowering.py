@@ -3,7 +3,8 @@ package's: for the bench's count queries, the serving mix and random filter
 trees over the rich corpus, both give bit-equal wire code arrays, equal dyn
 rows and equal register counts (or raise the same host-fallback exception).
 The reference engine runs on one CPU device, where its row layout is the
-port's (no mesh padding, no TPU row alignment)."""
+port's (no mesh padding, no TPU row alignment). Each engine lowers on its own
+package's corpus, built from the same seed, and its own parse of the query."""
 
 import json
 import random
@@ -13,47 +14,46 @@ import numpy as np
 import pytest
 import torch
 
+from lapis_silo_tpu import testing as ref_testing
 from lapis_silo_tpu.ops import device_engine as ref_de
-from lapis_silo_tpu.query.engine import Query
-from lapis_silo_tpu.testing import (
-    hot_count_queries, sample_count_queries, synthetic_database,
-)
+from lapis_silo_tpu.query.engine import Query as RefQuery
 from lapis_silo_torch.ops import vm
 from lapis_silo_torch.ops.device_engine import DeviceEngine
+from lapis_silo_torch.query.engine import Query
+from lapis_silo_torch.testing import (
+    hot_count_queries, sample_count_queries, synthetic_database,
+)
 
 from .test_fuzz_filters import random_filter
 
 
-def _engines(db):
-    return (ref_de.DeviceEngine(db, devices=jax.devices()[:1]),
-            DeviceEngine(db, torch.device("cpu")))
+def _engines(**corpus):
+    return (ref_de.DeviceEngine(ref_testing.synthetic_database(**corpus),
+                                devices=jax.devices()[:1]),
+            DeviceEngine(synthetic_database(**corpus), torch.device("cpu")))
 
 
 @pytest.fixture(scope="module")
 def lean():
-    return _engines(synthetic_database(2000, 400, n_partitions=3, seed=4))
+    return _engines(n_rows=2000, length=400, n_partitions=3, seed=4)
 
 
 @pytest.fixture(scope="module")
 def rich():
-    return _engines(synthetic_database(999, 333, n_partitions=3, seed=7,
-                                       rich=True))
+    return _engines(n_rows=999, length=333, n_partitions=3, seed=7, rich=True)
 
 
-def _filter(query_json: str):
-    return Query(query_json).filter
-
-
-def _assert_same_lowering(engines, filter_expr) -> bool:
-    """True when both lowered the filter, False when both fell back."""
+def _assert_same_lowering(engines, query_json: str) -> bool:
+    """True when both lowered the query's filter, False when both fell
+    back."""
     ref, port = engines
     try:
-        want, want_regs = ref.lower(filter_expr)
+        want, want_regs = ref.lower(RefQuery(query_json).filter)
     except (ref_de.ProgramTooLarge, ref_de.StructureMismatch) as ex:
         with pytest.raises(getattr(vm, type(ex).__name__)):
-            port.lower(filter_expr)
+            port.lower(Query(query_json).filter)
         return False
-    got, got_regs = port.lower(filter_expr)
+    got, got_regs = port.lower(Query(query_json).filter)
     assert got_regs == want_regs == got.max_regs == want.max_regs
     bucket = vm._LEN_BUCKETS[-1]
     np.testing.assert_array_equal(
@@ -79,14 +79,14 @@ def test_row_layout_matches_reference(lean):
 def test_sample_count_queries_lower_identically(lean):
     db = lean[1].db
     for query in sample_count_queries(db, 64, seed=3):
-        assert _assert_same_lowering(lean, _filter(query))
+        assert _assert_same_lowering(lean, query)
 
 
 def test_hot_count_queries_lower_identically(lean):
     db = lean[1].db
     positions = np.arange(0, 400, 7)
     for query in hot_count_queries(db, positions, 48, seed=5):
-        assert _assert_same_lowering(lean, _filter(query))
+        assert _assert_same_lowering(lean, query)
 
 
 def test_rich_filter_trees_lower_identically(rich):
@@ -96,5 +96,5 @@ def test_rich_filter_trees_lower_identically(rich):
     for _ in range(120):
         query = json.dumps({"filterExpression": random_filter(rng, db),
                             "action": {"type": "Aggregated"}})
-        lowered += _assert_same_lowering(rich, _filter(query))
+        lowered += _assert_same_lowering(rich, query)
     assert lowered >= 90

@@ -7,8 +7,9 @@ vm_run_sharded / mutation_counts_banked_sharded in interpret mode, the
 window-local densify to vm._densify_one with w_off, the entry-split sparse
 counts to _sparse_mutation_counts_sharded_jit, and the sharded engine, with
 4 and 8 shards, to the JAX mesh engine and the host oracle on both tiers and
-every pool route. Every value is an integer or a word: the tolerance is
-equality. The CUDA launches are held to the plain versions on the card
+every pool route. Each package serves its own corpus from the same seed and
+parses the queries itself. Every value is an integer or a word: the
+tolerance is equality. The CUDA launches are held to the plain versions on the card
 (marked `cuda`)."""
 
 import json
@@ -20,23 +21,25 @@ import pytest
 import torch
 
 import lapis_silo_torch
+from lapis_silo_tpu import testing as ref_testing
 from lapis_silo_tpu.ops import device_engine as ref_de
 from lapis_silo_tpu.ops import pallas_kernels as pk
 from lapis_silo_tpu.ops import reductions as ref_reductions
 from lapis_silo_tpu.ops import vm as ref_vm
 from lapis_silo_tpu.parallel.mesh import make_mesh
-from lapis_silo_tpu.query import ast
-from lapis_silo_tpu.query.engine import Query, QueryEngine
-from lapis_silo_tpu.query.ir import HostEvaluator
-from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
+from lapis_silo_tpu.query.engine import Query as RefQuery
 from lapis_silo_torch.ops import kernels, reductions, vm
 from lapis_silo_torch.ops.device_engine import (
     DeviceEngine, build_state, state_from_reference,
 )
 from lapis_silo_torch.parallel.shards import ShardLayout, gather_words, reduce_sum
+from lapis_silo_torch.query import ast
+from lapis_silo_torch.query.engine import Query, QueryEngine
+from lapis_silo_torch.query.ir import HostEvaluator
+from lapis_silo_torch.testing import sample_count_queries, synthetic_database
 
 from .test_torch_sparse import _combined, _stream
-from .test_torch_vm import _bank, _program, _run_xla
+from .test_torch_vm import _bank, _program, _random_segments, _run_xla
 
 CPU = torch.device("cpu")
 # 2,048 sequences in 3 partitions: 22 words per partition, padded to 24 on 4
@@ -72,6 +75,10 @@ def _filters(queries):
     return [Query(q).filter for q in queries]
 
 
+def _ref_filters(queries):
+    return [RefQuery(q).filter for q in queries]
+
+
 # -- (a) the sharded wrappers ----------------------------------------------
 
 @pytest.mark.parametrize("n_shards,n_regs,pw,wild", [
@@ -103,6 +110,29 @@ def test_plain_vm_run_sharded_matches_xla_interpreter(n_shards, n_regs, pw,
         _split(sparse, n_shards), _split(full, n_shards), n_regs)
     np.testing.assert_array_equal(_words(plain_words), want_words)
     assert torch.equal(plain_counts, counts)
+
+
+@pytest.mark.parametrize("n_shards,n_regs,pw,n_cuts", [
+    (3, 8, 300, 4), (4, 16, 2048, 9), (8, 32, 2048, 20)])
+def test_plain_vm_run_sharded_segments_match_unsharded(n_shards, n_regs, pw,
+                                                       n_cuts):
+    """Random segment lists over wild programs, sharded: each shard runs
+    every segment on its own words, so the words and the summed counts equal
+    the unsharded segmented run (held to the XLA interpreter segment by
+    segment in tests/test_torch_vm.py)."""
+    rng = np.random.default_rng(n_shards * 10 + n_cuts)
+    bank, dyn, sparse, full = _bank(rng, pw)
+    ops, opers, specs = _program(rng, 40, n_regs, wild=True)
+    n_instr = vm._round_instr(len(ops))
+    code = _t(vm.pack_code_array(128, ops, opers, specs))
+    starts = _random_segments(rng, n_instr, n_cuts)
+    want_words, want_counts = kernels.vm_run_plain(
+        code, n_instr, _t(bank), _t(dyn), _t(sparse), _t(full), n_regs, starts)
+    shards = [_split(a, n_shards) for a in (bank, dyn, sparse, full)]
+    for run in (kernels.vm_run_sharded, kernels.vm_run_sharded_plain):
+        words, counts = run(code, n_instr, *shards, n_regs, starts)
+        assert torch.equal(gather_words(words, "cpu"), want_words)
+        assert torch.equal(counts, want_counts)
 
 
 def test_plain_vm_run_sharded_matches_mosaic_on_mesh():
@@ -286,33 +316,34 @@ def two_tier_db():
 
 
 @pytest.fixture(scope="module")
-def dense_ref(dense_db):
-    engine = ref_de.DeviceEngine(dense_db, devices=jax.devices()[:8])
+def dense_ref():
+    engine = ref_de.DeviceEngine(ref_testing.synthetic_database(**DENSE),
+                                 devices=jax.devices()[:8])
     assert engine.mesh is not None and engine.n_words == 24
     return engine
 
 
 @pytest.fixture(scope="module")
-def two_tier_ref(two_tier_db):
-    engine = ref_de.DeviceEngine(two_tier_db, devices=jax.devices()[:8],
+def two_tier_ref():
+    engine = ref_de.DeviceEngine(ref_testing.synthetic_database(**TWO_TIER),
+                                 devices=jax.devices()[:8],
                                  sparse_min_words=1)
     assert engine.mesh is not None and engine.n_sparse > 0
     return engine
 
 
-def _mutation_filter(db):
-    return Query(json.dumps({"action": {"type": "Aggregated"},
-                             "filterExpression": {"type": "Or", "children": [
-                                 {"type": "HasNucleotideMutation",
-                                  "position": 7},
-                                 {"type": "IntBetween", "column": "age",
-                                  "from": 30, "to": 60}]}})).filter
+MUTATION_QUERY = json.dumps({
+    "action": {"type": "Aggregated"},
+    "filterExpression": {"type": "Or", "children": [
+        {"type": "HasNucleotideMutation", "position": 7},
+        {"type": "IntBetween", "column": "age", "from": 30, "to": 60}]}})
 
 
-def _check_engine(port, ref, db, filters, route="pooled"):
+def _check_engine(port, ref, db, queries, route="pooled"):
     """Counts (per route), evaluate words and Mutations matrices of the port
     against the JAX mesh engine and the host oracle."""
-    want = ref.count_batch(filters)
+    filters = _filters(queries)
+    want = ref.count_batch(_ref_filters(queries))
     assert want == [_host_count(db, f) for f in filters]
     lowered = [port.lower(f)[0] for f in filters]
     if route == "poolless":
@@ -326,8 +357,8 @@ def _check_engine(port, ref, db, filters, route="pooled"):
         assert int(port.count_async(f, program)) == want[filters.index(f)]
         for pi, part in enumerate(port.evaluate(f)):
             np.testing.assert_array_equal(part, _host_words(db, f, pi))
-    mut = _mutation_filter(db)
-    ref_words = ref.evaluate(mut)
+    mut = Query(MUTATION_QUERY).filter
+    ref_words = ref.evaluate(RefQuery(MUTATION_QUERY).filter)
     for name in sorted(db.nuc_sequences):
         want_matrix = ref.mutation_counts("nuc", name, ref_words)
         np.testing.assert_array_equal(
@@ -348,7 +379,7 @@ def test_sharded_dense_engine_matches_jax_mesh_and_oracle(dense_db, dense_ref,
     assert port.banks[0].shape == (dense_ref.n_rows, 3 * 24 // n_shards)
     kernels.reset_counts()
     _check_engine(port, dense_ref, dense_db,
-                  _filters(sample_count_queries(dense_db, 24, seed=3)))
+                  sample_count_queries(dense_db, 24, seed=3))
     assert kernels.VM_RUN_SHARDED.plain_launches > 0
     assert kernels.MUTATION_COUNTS_SHARDED.plain_launches > 0
     assert kernels.VM_RUN.plain_launches >= n_shards * (
@@ -370,8 +401,7 @@ def test_sharded_two_tier_engine_matches_jax_mesh_and_oracle(
     port._pool_update_k_cap = 4
     kernels.reset_counts()
     _check_engine(port, two_tier_ref, two_tier_db,
-                  _filters(sample_count_queries(two_tier_db, 24, seed=12)),
-                  route)
+                  sample_count_queries(two_tier_db, 24, seed=12), route)
     # the poolless route forces the count batch only: its single counts and
     # words ride the pool
     pooled = kernels.DENSIFY_INTO_POOL.plain_launches
@@ -398,17 +428,20 @@ def test_sharded_engine_matches_jax_mesh_kernel_route(two_tier_db,
     ref_de._interpreter.cache_clear()
     ref_reductions._sparse_mutation_counts_sharded_jit.cache_clear()
     try:
-        ref = ref_de.DeviceEngine(two_tier_db, devices=jax.devices()[:8],
+        ref = ref_de.DeviceEngine(ref_testing.synthetic_database(**TWO_TIER),
+                                  devices=jax.devices()[:8],
                                   sparse_min_words=1)
         assert ref.bank3 and ref.n_words % (128 * 8) == 0 and ref.pool_slots
         port = DeviceEngine(two_tier_db, CPU, sparse_min_words=1,
                             devices=[CPU] * 8)
-        filters = _filters(sample_count_queries(two_tier_db, 8, seed=5))
-        assert port.count_batch(filters) == ref.count_batch(filters)
-        mut = _mutation_filter(two_tier_db)
+        queries = sample_count_queries(two_tier_db, 8, seed=5)
+        filters, ref_filters = _filters(queries), _ref_filters(queries)
+        assert port.count_batch(filters) == ref.count_batch(ref_filters)
+        mut = Query(MUTATION_QUERY).filter
         np.testing.assert_array_equal(
             port.mutation_counts("nuc", "main", port.evaluate(mut)),
-            ref.mutation_counts("nuc", "main", ref.evaluate(mut)))
+            ref.mutation_counts("nuc", "main", ref.evaluate(
+                RefQuery(MUTATION_QUERY).filter)))
         # the converted state of the kernel-route engine: its 128 x 8 word
         # padding splits over 8 shards as over 4
         for n_shards in (4, 8):
@@ -420,7 +453,8 @@ def test_sharded_engine_matches_jax_mesh_kernel_route(two_tier_db,
             converted = DeviceEngine(two_tier_db, CPU, state=state,
                                      devices=[CPU] * n_shards)
             assert converted.n_words == ref.n_words
-            assert converted.count_batch(filters) == ref.count_batch(filters)
+            assert converted.count_batch(filters) == ref.count_batch(
+                ref_filters)
     finally:
         ref_de._interpreter.cache_clear()
         ref_reductions._sparse_mutation_counts_sharded_jit.cache_clear()
@@ -434,12 +468,12 @@ def test_execute_query_through_sharded_install(monkeypatch):
     devices) and the host oracle."""
     monkeypatch.setenv("SILO_DENSE_BANK_BUDGET_GB", "0.00001")
     monkeypatch.setenv("SILO_LEAF_POOL_GB", "0.001")
-    ref_db = synthetic_database(**TWO_TIER)
+    ref_db = ref_testing.synthetic_database(**TWO_TIER)
     port_db = synthetic_database(**TWO_TIER)
     engine = lapis_silo_torch.install(port_db, CPU, devices=[CPU] * 4)
     assert len(engine.shards) == 4 and engine.n_sparse > 0
     assert engine.pool_slots > 0
-    counts = sample_count_queries(ref_db, 24, seed=8)
+    counts = sample_count_queries(port_db, 24, seed=8)
     muts = [json.dumps({"action": {"type": "Mutations", "minProportion": p},
                         "filterExpression": f}) for f, p in (
         ({"type": "HasNucleotideMutation", "position": 101}, 0.0),
@@ -509,8 +543,9 @@ def test_state_from_mesh_reference_equals_own_build(two_tier_db, two_tier_ref,
                                           err_msg=name)
     engine = DeviceEngine(two_tier_db, CPU, state=converted,
                           devices=[CPU] * n_shards)
-    filters = _filters(sample_count_queries(two_tier_db, 12, seed=2))
-    assert engine.count_batch(filters) == ref.count_batch(filters)
+    queries = sample_count_queries(two_tier_db, 12, seed=2)
+    assert engine.count_batch(_filters(queries)) == ref.count_batch(
+        _ref_filters(queries))
 
 
 # -- (f) on the card ---------------------------------------------------------
@@ -526,8 +561,9 @@ def cuda_devices():
 
 @pytest.mark.cuda
 def test_sharded_kernels_match_plain_on_card(cuda_devices):
-    """vm_run_sharded and mutation_counts_sharded (K1 and K2 per shard)
-    against their plain versions, and the windowed K4/K5 against theirs,
+    """vm_run_sharded (one segment and random segments) and
+    mutation_counts_sharded (K1 and K2 per shard) against their plain
+    versions, and the windowed K4/K5 against theirs,
     with shard windows that straddle partitions and a ragged local width."""
     rng = np.random.default_rng(3)
     pw, n_regs = 4 * 523, 16
@@ -540,12 +576,14 @@ def test_sharded_kernels_match_plain_on_card(cuda_devices):
         return [part.to(dev) for part, dev in zip(parts, cuda_devices)]
 
     args = [on_card(_split(a, 4)) for a in (bank, dyn, sparse, full)]
-    words, counts = kernels.vm_run_sharded(code, n_instr, *args, n_regs)
-    plain_words, plain_counts = kernels.vm_run_sharded_plain(
-        code, n_instr, *args, n_regs)
-    assert torch.equal(counts, plain_counts)
-    for got, want in zip(words, plain_words):
-        assert torch.equal(got, want)
+    for segments in (None, _random_segments(rng, n_instr, 7)):
+        words, counts = kernels.vm_run_sharded(code, n_instr, *args, n_regs,
+                                               segments)
+        plain_words, plain_counts = kernels.vm_run_sharded_plain(
+            code, n_instr, *args, n_regs, segments)
+        assert torch.equal(counts, plain_counts)
+        for got, want in zip(words, plain_words):
+            assert torch.equal(got, want)
     banks, filters = on_card(_split(bank, 4)), on_card(_split(full, 4))
     assert torch.equal(kernels.mutation_counts_sharded(banks, filters, 3, 20),
                        kernels.mutation_counts_sharded_plain(banks, filters,
@@ -589,7 +627,7 @@ def test_sharded_engine_on_card_matches_cpu(cuda_devices, two_tier_db):
     for f in filters[:6]:
         for a, b in zip(card.evaluate(f), cpu.evaluate(f)):
             np.testing.assert_array_equal(a, b)
-    mut = _mutation_filter(two_tier_db)
+    mut = Query(MUTATION_QUERY).filter
     np.testing.assert_array_equal(
         card.mutation_counts_many("nuc", ["main"], card.device_filter(mut))[
             "main"],

@@ -2,8 +2,9 @@
 JAX package's engine with the tier forced on, and against the host oracle.
 On the CPU the JAX engine has no pool (its pool needs the TPU's 3-D bank),
 so the port's pooled results are held to the reference's poolless ones, and
-its resident state through state_from_reference. Every result is an integer
-or an exact bitset: the tolerance is equality."""
+its resident state through state_from_reference. Each package serves its own
+corpus from the same seed and parses the queries itself. Every result is an
+integer or an exact bitset: the tolerance is equality."""
 
 import concurrent.futures
 import json
@@ -15,18 +16,20 @@ import pytest
 import torch
 
 import lapis_silo_torch
+from lapis_silo_tpu import testing as ref_testing
 from lapis_silo_tpu.ops import device_engine as ref_de
-from lapis_silo_tpu.query import ast
-from lapis_silo_tpu.query.engine import Query, QueryEngine
-from lapis_silo_tpu.query.ir import HostEvaluator
-from lapis_silo_tpu.testing import (
-    hot_count_queries, sample_count_queries, synthetic_database,
-)
+from lapis_silo_tpu.query.engine import Query as RefQuery
 from lapis_silo_torch.ops import kernels
 from lapis_silo_torch.ops.device_engine import (
     DeviceEngine, build_state, state_from_reference,
 )
 from lapis_silo_torch.ops.vm import ProgramTooLarge
+from lapis_silo_torch.query import ast
+from lapis_silo_torch.query.engine import Query, QueryEngine
+from lapis_silo_torch.query.ir import HostEvaluator
+from lapis_silo_torch.testing import (
+    hot_count_queries, sample_count_queries, synthetic_database,
+)
 
 CPU = torch.device("cpu")
 # 1,000 sequences per partition over 4,000 positions: about 6 mutated
@@ -40,8 +43,9 @@ def corpus():
 
 
 @pytest.fixture(scope="module")
-def ref_engine(corpus):
-    engine = ref_de.DeviceEngine(corpus, devices=jax.devices()[:1],
+def ref_engine():
+    engine = ref_de.DeviceEngine(ref_testing.synthetic_database(**CORPUS),
+                                 devices=jax.devices()[:1],
                                  sparse_min_words=1)
     assert engine.n_sparse > 0 and engine.pool_slots == 0
     return engine
@@ -49,6 +53,10 @@ def ref_engine(corpus):
 
 def _filters(queries):
     return [Query(q).filter for q in queries]
+
+
+def _ref_filters(queries):
+    return [RefQuery(q).filter for q in queries]
 
 
 def _host_count(db, filter_expr):
@@ -118,9 +126,9 @@ def test_lowered_programs_equal_reference(corpus, ref_engine):
     leaves and majority reconstruction over sparse siblings included."""
     port = DeviceEngine(corpus, CPU, sparse_min_words=1)
     n_sparse_programs = 0
-    for f in _filters(sample_count_queries(corpus, 48, seed=4)):
-        want, want_regs = ref_engine.lower(f)
-        got, got_regs = port.lower(f)
+    for q in sample_count_queries(corpus, 48, seed=4):
+        want, want_regs = ref_engine.lower(RefQuery(q).filter)
+        got, got_regs = port.lower(Query(q).filter)
         assert (got.opcodes, got.operands, got.regspec, got.sparse_leaves,
                 got.max_regs, got_regs) == (
             want.opcodes, want.operands, want.regspec, want.sparse_leaves,
@@ -142,8 +150,9 @@ def test_every_output_kind_matches_on_each_route(corpus, ref_engine, route,
     engine = DeviceEngine(corpus, CPU, sparse_min_words=1)
     assert (engine.pool_slots > 0) == (route != "no_pool")
     engine._pool_update_k_cap = 4  # several update chunks per launch
-    filters = _filters(sample_count_queries(corpus, 40, seed=12))
-    want = ref_engine.count_batch(filters)
+    queries = sample_count_queries(corpus, 40, seed=12)
+    filters, ref_filters = _filters(queries), _ref_filters(queries)
+    want = ref_engine.count_batch(ref_filters)
     assert want == [_host_count(corpus, f) for f in filters]
     lowered = [engine.lower(f)[0] for f in filters]
     kernels.reset_counts()
@@ -158,13 +167,13 @@ def test_every_output_kind_matches_on_each_route(corpus, ref_engine, route,
         pooled = kernels.DENSIFY_INTO_POOL.plain_launches
         assert (pooled > 1) if route == "pooled" else (pooled == 0)
     assert got == want
-    for f, program in zip(filters[:12], lowered):
+    for f, ref_f, program in zip(filters[:12], ref_filters, lowered):
         if not program.sparse_leaves:
             continue
         words = engine.evaluate(f)
         for pi, part in enumerate(words):
             np.testing.assert_array_equal(part, _host_words(corpus, f, pi))
-        assert int(engine.count_async(f, program)) == ref_engine.count(f)
+        assert int(engine.count_async(f, program)) == ref_engine.count(ref_f)
 
 
 def test_execute_query_two_tier_matches_jax_engine(monkeypatch):
@@ -176,11 +185,11 @@ def test_execute_query_two_tier_matches_jax_engine(monkeypatch):
     the host oracle."""
     monkeypatch.setenv("SILO_DENSE_BANK_BUDGET_GB", "0.00001")
     monkeypatch.setenv("SILO_LEAF_POOL_GB", "0.01")
-    ref_db = synthetic_database(**CORPUS)
+    ref_db = ref_testing.synthetic_database(**CORPUS)
     port_db = synthetic_database(**CORPUS)
     engine = lapis_silo_torch.install(port_db, CPU)
     assert engine.n_sparse > 0 and engine.pool_slots > 0
-    counts = sample_count_queries(ref_db, 48, seed=8)
+    counts = sample_count_queries(port_db, 48, seed=8)
     muts = [json.dumps({"action": {"type": "Mutations", "minProportion": p},
                         "filterExpression": f}) for f, p in (
         ({"type": "HasNucleotideMutation", "position": 1201}, 0.0),
@@ -310,15 +319,15 @@ def test_sparse_caps_refuse_and_split_as_the_reference(corpus, ref_engine):
     """The lowering refuses a program with more sparse leaves than the
     batch cap, and a poolless batch splits at max_sparse_k."""
     engine = DeviceEngine(corpus, CPU, sparse_min_words=1)
-    wide = Query(json.dumps({"filterExpression": {"type": "Or", "children": [
+    wide = json.dumps({"filterExpression": {"type": "Or", "children": [
         {"type": "HasNucleotideMutation", "position": p}
-        for p in range(1, 200, 4)]}, "action": {"type": "Aggregated"}})).filter
-    n_leaves = len(engine.lower(wide)[0].sparse_leaves)
+        for p in range(1, 200, 4)]}, "action": {"type": "Aggregated"}})
+    n_leaves = len(engine.lower(Query(wide).filter)[0].sparse_leaves)
     engine.sparse_batch_cap = ref_engine.sparse_batch_cap = n_leaves - 1
     with pytest.raises(ProgramTooLarge):
-        engine.lower(wide)
+        engine.lower(Query(wide).filter)
     with pytest.raises(ref_de.ProgramTooLarge):
-        ref_engine.lower(wide)
+        ref_engine.lower(RefQuery(wide).filter)
     ref_engine.sparse_batch_cap = ref_engine.max_sparse_k
     filters = _filters(hot_count_queries(corpus, list(range(0, 4000, 9)),
                                          64, seed=3))

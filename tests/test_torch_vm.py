@@ -5,7 +5,9 @@ wrapper runs for CPU tensors) must give bit-equal reg[0] words and EMIT
 counts to the XLA interpreter (lapis_silo_tpu/ops/vm.py _interpreter, the
 form the JAX package runs on the CPU) on random programs, clamped operands
 and the EMIT edge cases included, and to the Mosaic kernel in interpret mode
-on programs where the two JAX forms agree. All values are integers: the
+on programs where the two JAX forms agree. A program split into segments
+runs each segment from fresh registers, as the XLA interpreter runs that
+segment alone, and adds the segments' counts. All values are integers: the
 tolerance is exact equality. The CUDA kernel is held to the plain version on
 the card (marked `cuda`)."""
 
@@ -81,13 +83,21 @@ def _run_xla(code, n_instr, bank, dyn, sparse, full, n_regs):
     return words, counts
 
 
-def _run_plain(code, n_instr, bank, dyn, sparse, full, n_regs):
+def _run_plain(code, n_instr, bank, dyn, sparse, full, n_regs,
+               segments=None):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
     words, counts = kernels.vm_run(t(code), n_instr, t(bank), t(dyn),
-                                   t(sparse), t(full), n_regs)
+                                   t(sparse), t(full), n_regs, segments)
     return words.numpy().view(np.uint32), counts.numpy()
+
+
+def _random_segments(rng, n_instr, n_cuts):
+    """Segment starts from 0 to n_instr with `n_cuts` random cuts, repeats
+    (empty segments) allowed."""
+    cuts = np.sort(rng.integers(0, n_instr + 1, size=n_cuts))
+    return np.concatenate([[0], cuts, [n_instr]]).astype(np.int32)
 
 
 @pytest.mark.parametrize("n_regs,pw,wild", [
@@ -129,6 +139,49 @@ def test_plain_vm_matches_mosaic_kernel_interpreted():
                                        n_regs)
     np.testing.assert_array_equal(got_words, np.asarray(want_words))
     np.testing.assert_array_equal(got_counts, np.asarray(want_counts))
+
+
+@pytest.mark.parametrize("n_regs,pw,n_cuts", [
+    (4, 2048, 1), (8, 77, 5), (16, 300, 12), (32, 130, 30)])
+def test_plain_vm_segments_match_xla_per_segment(n_regs, pw, n_cuts):
+    """Random segment lists over wild programs: the words are those of the
+    XLA interpreter running the last segment alone, and the counts the sum
+    of its runs of each segment alone (an empty segment adds nothing and
+    leaves zero words)."""
+    rng = np.random.default_rng(n_regs * 7 + n_cuts)
+    bank, dyn, sparse, full = _bank(rng, pw)
+    ops, opers, specs = _program(rng, 40, n_regs, wild=True)
+    n_instr = vm._round_instr(len(ops))
+    code = vm.pack_code_array(128, ops, opers, specs)
+    starts = _random_segments(rng, n_instr, n_cuts)
+    want_words = np.zeros(pw, dtype=np.uint32)
+    want_counts = np.zeros(vm.MAX_BATCH_QUERIES, dtype=np.int64)
+    for lo, hi in zip(starts, starts[1:]):
+        seg_code = vm.pack_code_array(128, [], [], [])
+        seg_code[:, : hi - lo] = code[:, lo:hi]
+        want_words, counts = (
+            _run_xla(seg_code, hi - lo, bank, dyn, sparse, full, n_regs)
+            if hi > lo else (np.zeros(pw, dtype=np.uint32), 0))
+        want_counts += counts
+    got_words, got_counts = _run_plain(code, n_instr, bank, dyn, sparse, full,
+                                       n_regs, starts)
+    np.testing.assert_array_equal(got_words, want_words)
+    np.testing.assert_array_equal(got_counts, want_counts)
+    # one segment given explicitly is the whole program
+    np.testing.assert_array_equal(
+        _run_plain(code, n_instr, bank, dyn, sparse, full, n_regs,
+                   [0, n_instr])[1],
+        _run_xla(code, n_instr, bank, dyn, sparse, full, n_regs)[1])
+
+
+@pytest.mark.parametrize("segments", [[0], [1, 8], [0, 4, 7], [0, 6, 4, 8],
+                                      [[0, 8]], [0.0, 8.0]])
+def test_vm_wrapper_rejects_bad_segments(segments):
+    pw = 64
+    code = torch.zeros((2, 16), dtype=torch.int32)
+    rows = torch.zeros((1, pw), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.vm_run(code, 8, rows, rows, rows, rows[0], 4, segments)
 
 
 def test_vm_wrapper_runs_plain_version_on_cpu_and_counts_it():
@@ -187,5 +240,29 @@ def test_vm_kernel_matches_plain_on_card(cuda_device, n_regs, pw):
     want = kernels.vm_run(args[0], n_instr, *args[1:], n_regs)
     got = kernels.vm_run(args[0].to(cuda_device), n_instr,
                          *(a.to(cuda_device) for a in args[1:]), n_regs)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_regs,pw,n_cuts", [(4, 2048, 3), (16, 300, 40),
+                                              (32, 2045, 150)])
+def test_vm_kernel_segments_match_plain_on_card(cuda_device, n_regs, pw,
+                                                n_cuts):
+    """Random segment lists (empty segments, segments of one instruction,
+    repeated and out-of-range EMITs inside a segment) on the card against
+    the plain version."""
+    rng = np.random.default_rng(n_regs * 3 + n_cuts)
+    host = _bank(rng, pw)
+    ops, opers, specs = _program(rng, 200, n_regs, wild=True)
+    code = vm.pack_code_array(512, ops, opers, specs)
+    args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+            for a in (code, *host)]
+    n_instr = vm._round_instr(len(ops))
+    starts = _random_segments(rng, n_instr, n_cuts)
+    want = kernels.vm_run(args[0], n_instr, *args[1:], n_regs, starts)
+    got = kernels.vm_run(args[0].to(cuda_device), n_instr,
+                         *(a.to(cuda_device) for a in args[1:]), n_regs,
+                         starts)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
