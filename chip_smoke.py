@@ -13,7 +13,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      pool slots including the scratch row, densify windows of word shards,
      the VM in one segment and in random segments, also over 4 word shards)
      and at the main paths' shapes (the 512-query batch in its per-query
-     segments, and as one segment), with both times there and each kernel's
+     segments, and as one segment), with both times there (for the VM also
+     its wrapper's wall time per call, host time included) and each kernel's
      bound, the larger of its bytes over the HBM rate and its operations
      over the peak rate (the two-tier shapes are compared in phase 7's
      set-up, the sharded ones in phase 8a's, the windowed and chunked ones
@@ -87,8 +88,8 @@ OFF_PATH = ("popcount_rows_and_filter",)
 JAX_MODULES = ("jax", "lapis_silo_tpu")
 # the least time of a kernel's work: its bytes over the H100's HBM rate, or
 # its operations (integer ALU and popcount, on the CUDA cores) over the
-# card's peak outside the tensor cores, 67 T/s (the on-chip-measurement
-# guide's table), whichever is longer, per card the work is spread over
+# card's peak outside the tensor cores, 67 T/s (NVIDIA's H100 SXM data
+# sheet, float32), whichever is longer, per card the work is spread over
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
@@ -129,6 +130,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Wall time per call of fn() in ms, host time included: synchronize,
+    `reps` calls, synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def bound(n_bytes: float, n_ops: float, n_cards: int = 1) -> tuple:
@@ -324,7 +339,7 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
             cuts = np.sort(np.concatenate([
                 rng.integers(0, n_instr + 1, size=n_regs * 2), [5, 5, 6]]))
             for segments in (None, np.concatenate([[0], cuts, [n_instr]])):
-                args = (dev(code), n_instr, dev(bank), dev(dyn), dev(sparse),
+                args = (torch.from_numpy(code), n_instr, dev(bank), dev(dyn), dev(sparse),
                         dev(full), n_regs, segments)
                 got = kernels.vm_run(*args)
                 want = kernels.vm_run_plain(*args)
@@ -675,12 +690,14 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
                 warmup=1),
         4 * (n_rows * pw + pw + n_rows * len(engine.banks)), 2 * n_rows * pw,
         len(engine.shards.distinct))
+    sharded_wall_ms = wall_ms(lambda: kernels.vm_run_sharded(*inputs), reps=20)
     log("8a kernels", f"sharded shapes bit-exact, max_abs_err "
         f"{ {k: err[k] for k in ('vm_run_sharded', 'mutation_counts_sharded')} }; "
         f"vm_run_sharded {len(on_device)} programs, {n_instr} instructions in "
         f"{len(segments) - 1} segments, "
         f"{len(engine.banks)} shards of {engine.shards.local_words} words: "
-        f"kernel {timings['vm_run_sharded'][0]:.4f} ms, plain "
+        f"kernel {timings['vm_run_sharded'][0]:.4f} ms (the wrapper's wall "
+        f"time per call {sharded_wall_ms:.4f} ms), plain "
         f"{timings['vm_run_sharded'][1]:.1f} ms; mutation_counts_sharded "
         f"{meta['n_stored']} rows x {len(engine.banks)} shards of "
         f"{engine.shards.local_words} words: kernel "
@@ -791,11 +808,12 @@ def main() -> int:
                  if engine.host_count(p, allow_interpret=False) is None]
     code, n_instr, banks, dyns, rows, fulls, n_regs, segments = (
         engine.kernel_inputs(engine.batch_args(on_device)))
-    vm_inputs = (code.to(device), n_instr, banks[0], dyns[0], rows[0],
-                 fulls[0], n_regs, segments)
+    vm_inputs = (code, n_instr, banks[0], dyns[0], rows[0], fulls[0], n_regs,
+                 segments)
     got, want = kernels.vm_run(*vm_inputs), kernels.vm_run_plain(*vm_inputs)
     err["vm_run"] = max(err["vm_run"], *map(max_abs_err, got, want))
     vm_ms = cuda_ms(lambda: kernels.vm_run(*vm_inputs), reps=20)
+    vm_wall_ms = wall_ms(lambda: kernels.vm_run(*vm_inputs), reps=20)
     vm_plain_ms = cuda_ms(lambda: kernels.vm_run_plain(*vm_inputs), reps=2,
                           warmup=0)
     # the same batch as one segment, the serial program: the same words and
@@ -831,7 +849,8 @@ def main() -> int:
         f"{len(on_device)} programs, {n_instr} instructions in "
         f"{len(segments) - 1} segments, PW {engine.n_flat_words}: kernel "
         f"{vm_ms:.4f} ms (bound {bound(vm_bytes, vm_ops)[0]:.4f} ms, "
-        f"{vm_bytes / 1e6:.2f} MB), as one segment {vm_one_ms:.4f} ms, plain "
+        f"{vm_bytes / 1e6:.2f} MB; the wrapper's wall time per call "
+        f"{vm_wall_ms:.4f} ms), as one segment {vm_one_ms:.4f} ms, plain "
         f"{vm_plain_ms:.1f} ms; mutation_counts {meta['n_stored']} rows x "
         f"{engine.n_flat_words} words: kernel {mut_ms:.4f} ms "
         f"({meta['n_stored'] * engine.n_flat_words * 4 / mut_ms / 1e6:.0f} "

@@ -13,22 +13,33 @@
 //     write; an operand in [-4096, 0) wraps by 4096 as the XLA scatter does,
 //     any other operand outside [0, 4096) is dropped.
 //
-// Segments: the program may come split into segments (seg_starts [n_seg+1];
-// none given: one segment, the whole program). Each segment runs on a zeroed
-// register file and its EMIT counts add to the other segments'; reg[0] is the
-// last segment's. A batch of independent queries (DeviceEngine.batch_args)
-// gives each self-contained query its own segment, so this equals the serial
-// run of the whole program.
+// Segments: the program comes split into segments (seg_starts [n_seg + 1];
+// one segment [0, n_instr] is the whole program). Each segment runs on a
+// zeroed register file and its EMIT counts add to the other segments'; reg[0]
+// is the last segment's. A batch of independent queries
+// (DeviceEngine.batch_args) gives each self-contained query its own segment,
+// so this equals the serial run of the whole program.
 //
-// Layout: one warp per (segment, block of 128 words), four per CTA, each lane
-// holding 4 words (lane, lane + 32, lane + 64, lane + 96 of the block, so
-// every row load of the warp reads 128 contiguous bytes). A 512-query batch at
-// 2,048 words runs 449 x 16 warps instead of 16 CTAs that each walk the whole
-// program. A warp's register file lives in its own slice of shared memory as
-// [n_regs + 1][4][32] u32; a lane touches only its own columns, and the warps
-// of a CTA share nothing, so the kernel has no CTA barrier. The warp reads its
-// segment's code 32 instructions at a time, one per lane, and broadcasts each
-// with __shfl_sync.
+// Layout: one warp per (segment, block of 32 x L words), each lane holding L
+// words (lane, lane + 32, ... of the block, so every row load of the warp
+// reads 128 contiguous bytes). A warp's register file lives in its own slice
+// of shared memory as [n_regs + 1][L][32] u32; a lane touches only its own
+// columns, and the warps of a CTA share nothing, so the kernel has no CTA
+// barrier. The warp reads its segment's code 32 instructions at a time, one
+// per lane, and broadcasts each with __shfl_sync; the next 32 are loaded
+// while these run.
+//
+// Two forms, 4 warps a CTA, chosen per launch from the grid against the
+// card's SM count:
+//   - wide (L = 4) when the grid gives every SM a CTA: a 512-query batch at
+//     2,048 words runs 449 x 16 warps. Decoding an instruction, and its
+//     branches on the b-source and the mode (uniform across the warp), are
+//     shared by a lane's 4 words, which keeps the issue slots for loads and
+//     the ALU;
+//   - narrow (L = 1) otherwise: one long segment (a single program, or a
+//     batch run serially) at 2,048 words is 64 warps on 16 SMs instead of 16
+//     warps on 4, each walking the chain of instructions with a quarter of
+//     the work.
 //
 // What bounds it on an H100: each instruction reads one row word per word of
 // the axis, so the least traffic is each distinct row read once (the rows of a
@@ -36,12 +47,12 @@
 // serial chain, so a naive loop pays the full load latency on every
 // instruction. The loop loads the memory operands of kPrefetch instructions
 // first (they do not depend on the registers) and then executes them, so one
-// latency is paid per kPrefetch instructions, and the grid holds enough warps
-// to hide it behind other segments. Decoding an instruction is shared by a
-// lane's 4 words, which keeps the issue slots for loads and the ALU.
+// latency is paid per kPrefetch instructions, and a wide grid holds enough
+// warps to hide it behind other segments.
 // EMIT_COUNT is a warp reduction; lane 0 keeps the warp's list of (slot,
-// count) pairs with "set" semantics (a repeated slot overwrites its entry,
-// found by a ballot over 32 entries at a time), and at the end the warp adds
+// count) pairs with "set" semantics (a bit per slot says whether the list
+// holds it: a new slot is appended, a repeated one found by a ballot over 32
+// entries at a time and overwritten), and at the end the warp adds
 // each entry into the global counts with atomicAdd: the sum over word blocks
 // of a segment's last value per slot, plus the other segments'. The list has
 // one entry per instruction of the longest segment at most (4,096 slots at
@@ -53,8 +64,6 @@
 
 namespace {
 
-constexpr int kLaneWords = 4;                 // words per lane
-constexpr int kBlockW = 32 * kLaneWords;      // words per warp
 constexpr int kWarps = 4;                     // warps (segment blocks) per CTA
 constexpr int kMaxBatch = 4096;               // EMIT_COUNT slots (vm.MAX_BATCH_QUERIES)
 constexpr int kPrefetch = 8;                  // memory operands loaded ahead per chunk
@@ -72,14 +81,16 @@ __device__ __forceinline__ int64_t clip_row(int32_t operand, int64_t n_rows) {
   return r < n_rows ? r : n_rows - 1;
 }
 
+template <int kLaneWords>  // words per lane
 __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
     const int32_t* __restrict__ opers, const int32_t* __restrict__ specs,
-    int n_instr, const int32_t* __restrict__ seg_starts, int n_seg,
+    const int32_t* __restrict__ seg_starts, int n_seg,
     int list_cap, int64_t n_wblocks, const uint32_t* __restrict__ bank,
     int64_t n_rows, const uint32_t* __restrict__ dyn, int64_t n_dyn,
     const uint32_t* __restrict__ sparse, int64_t n_sparse,
     const uint32_t* __restrict__ full, int64_t pw, int n_regs,
     uint32_t* __restrict__ words, int32_t* __restrict__ counts) {
+  constexpr int kBlockW = 32 * kLaneWords;  // words per warp
   extern __shared__ uint32_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -89,30 +100,41 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
   // read neighbouring words of the same rows
   const int64_t wblock = unit % n_wblocks;
   const int seg = (int)(unit / n_wblocks);
-  const int lo = seg_starts ? seg_starts[seg] : 0;
-  const int hi = seg_starts ? seg_starts[seg + 1] : n_instr;
+  const int lo = seg_starts[seg];
+  const int hi = seg_starts[seg + 1];
 
-  // this warp's slice: registers [(n_regs + 1) * kBlockW], then the list
-  uint32_t* regs = smem + (size_t)warp * ((n_regs + 1) * kBlockW + 2 * list_cap);
+  // this warp's slice: registers [(n_regs + 1) * kBlockW], the list, and a
+  // bit per EMIT slot, set once the list holds it
+  uint32_t* regs = smem + (size_t)warp * ((n_regs + 1) * kBlockW +
+                                          2 * list_cap + kMaxBatch / 32);
   int32_t* list_slot = (int32_t*)(regs + (n_regs + 1) * kBlockW);
   int32_t* list_val = list_slot + list_cap;
+  uint32_t* listed = (uint32_t*)(list_val + list_cap);
   int list_len = 0;  // the same in every lane
 
   // the lane's words are w0 + 32 k; those past the ragged edge load
   // nothing, so their registers stay 0
   const int64_t w0 = wblock * kBlockW + lane;
+  bool live[kLaneWords];
   uint32_t fw[kLaneWords];
 #pragma unroll
   for (int k = 0; k < kLaneWords; ++k) {
-    fw[k] = w0 + k * 32 < pw ? full[w0 + k * 32] : 0u;
+    live[k] = w0 + k * 32 < pw;
+    fw[k] = live[k] ? full[w0 + k * 32] : 0u;
   }
   for (int i = lane; i < (n_regs + 1) * kBlockW; i += 32) regs[i] = 0u;
+  for (int i = lane; i < kMaxBatch / 32; i += 32) listed[i] = 0u;
   __syncwarp();
 
+  // the code of a tile of 32 instructions, one per lane; the next tile's is
+  // loaded while this one runs
+  int32_t my_oper = lane < hi - lo ? opers[lo + lane] : 0;
+  int32_t my_spec = lane < hi - lo ? specs[lo + lane] : 0;
   for (int tile = lo; tile < hi; tile += 32) {
     const int n_tile = min(32, hi - tile);
-    const int32_t my_oper = lane < n_tile ? opers[tile + lane] : 0;
-    const int32_t my_spec = lane < n_tile ? specs[tile + lane] : 0;
+    const int next = tile + 32 + lane;
+    const int32_t next_oper = next < hi ? opers[next] : 0;
+    const int32_t next_spec = next < hi ? specs[next] : 0;
     for (int base = 0; base < n_tile; base += kPrefetch) {
       int32_t oper[kPrefetch], spec[kPrefetch];
       uint32_t bv[kPrefetch][kLaneWords];
@@ -120,20 +142,20 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
       for (int u = 0; u < kPrefetch; ++u) {
         oper[u] = __shfl_sync(0xffffffffu, my_oper, (base + u) & 31);
         spec[u] = __shfl_sync(0xffffffffu, my_spec, (base + u) & 31);
+        // every branch here and below is uniform across the warp
         const int bsrc = base + u < n_tile ? wire_bsrc(spec[u]) : 0;
-        const uint32_t* row = nullptr;
-        if (bsrc == 1) {
-          row = bank + clip_row(oper[u], n_rows) * pw;
-        } else if (bsrc == 2) {
-          row = dyn + clip_row(oper[u], n_dyn) * pw;
-        } else if (bsrc == 3) {
-          row = sparse + clip_row(oper[u], n_sparse) * pw;
-        }
+        if (bsrc >= 1 && bsrc <= 3) {
+          const uint32_t* row =
+              bsrc == 1 ? bank + clip_row(oper[u], n_rows) * pw
+              : bsrc == 2 ? dyn + clip_row(oper[u], n_dyn) * pw
+                          : sparse + clip_row(oper[u], n_sparse) * pw;
 #pragma unroll
-        for (int k = 0; k < kLaneWords; ++k) {
-          const int64_t wk = w0 + k * 32;
-          bv[u][k] = row && wk < pw ? __ldg(row + wk)
-                                    : (bsrc == 4 ? fw[k] : 0u);
+          for (int k = 0; k < kLaneWords; ++k) {
+            bv[u][k] = live[k] ? __ldg(row + w0 + k * 32) : 0u;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kLaneWords; ++k) bv[u][k] = bsrc == 4 ? fw[k] : 0u;
         }
       }
 #pragma unroll
@@ -143,23 +165,37 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
         const uint32_t* ra = regs + min(wire_ra(s), n_regs - 1) * kBlockW + lane;
         const uint32_t* rb = regs + min(wire_rb(s), n_regs - 1) * kBlockW + lane;
         uint32_t* rd = regs + min(wire_dst(s), n_regs) * kBlockW + lane;
-        const bool b_reg = wire_bsrc(s) == 0;
-        const int mode = wire_mode(s);
-        uint32_t a[kLaneWords];
+        uint32_t a[kLaneWords], b[kLaneWords];
 #pragma unroll
         for (int k = 0; k < kLaneWords; ++k) {
           a[k] = ra[k * 32];
-          const uint32_t b = b_reg ? rb[k * 32] : bv[u][k];
-          uint32_t val;
-          switch (mode) {
-            case 0: val = b; break;
-            case 1: val = a[k] & b; break;
-            case 2: val = a[k] | b; break;
-            case 3: val = a[k] ^ b; break;
-            default: val = a[k] & (b ^ fw[k]); break;
-          }
-          rd[k * 32] = val;
+          b[k] = wire_bsrc(s) == 0 ? rb[k * 32] : bv[u][k];
         }
+        uint32_t val[kLaneWords];
+        switch (wire_mode(s)) {
+          case 0:
+#pragma unroll
+            for (int k = 0; k < kLaneWords; ++k) val[k] = b[k];
+            break;
+          case 1:
+#pragma unroll
+            for (int k = 0; k < kLaneWords; ++k) val[k] = a[k] & b[k];
+            break;
+          case 2:
+#pragma unroll
+            for (int k = 0; k < kLaneWords; ++k) val[k] = a[k] | b[k];
+            break;
+          case 3:
+#pragma unroll
+            for (int k = 0; k < kLaneWords; ++k) val[k] = a[k] ^ b[k];
+            break;
+          default:
+#pragma unroll
+            for (int k = 0; k < kLaneWords; ++k) val[k] = a[k] & (b[k] ^ fw[k]);
+            break;
+        }
+#pragma unroll
+        for (int k = 0; k < kLaneWords; ++k) rd[k * 32] = val[k];
         if (wire_opcode(s) == 1) {  // EMIT_COUNT, uniform across the warp
           int bits = 0;
 #pragma unroll
@@ -167,8 +203,11 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
           const int32_t total = __reduce_add_sync(0xffffffffu, bits);
           const int32_t oi = oper[u] < 0 ? oper[u] + kMaxBatch : oper[u];
           if (oi >= 0 && oi < kMaxBatch) {
+            // a slot emitted before is found by a ballot over the list, 32
+            // entries at a time; a new one (the usual case) is appended
             int found = -1;
-            for (int k0 = 0; k0 < list_len; k0 += 32) {
+            const bool again = (listed[oi >> 5] >> (oi & 31)) & 1u;
+            for (int k0 = 0; again && k0 < list_len; k0 += 32) {
               const unsigned hit = __ballot_sync(
                   0xffffffffu,
                   k0 + lane < list_len && list_slot[k0 + lane] == oi);
@@ -181,18 +220,21 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
             if (lane == 0) {
               list_slot[found] = oi;
               list_val[found] = total;
+              listed[oi >> 5] |= 1u << (oi & 31);
             }
             __syncwarp();
           }
         }
       }
     }
+    my_oper = next_oper;
+    my_spec = next_spec;
   }
   __syncwarp();
   if (seg == n_seg - 1) {
 #pragma unroll
     for (int k = 0; k < kLaneWords; ++k) {
-      if (w0 + k * 32 < pw) words[w0 + k * 32] = regs[k * 32 + lane];
+      if (live[k]) words[w0 + k * 32] = regs[k * 32 + lane];
     }
   }
   for (int k = lane; k < list_len; k += 32) {
@@ -201,37 +243,58 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_kernel(
   }
 }
 
+template <int kLaneWords>
+int launch(const int32_t* block, int n_instr, int n_seg, int list_cap,
+           const void* bank, long long n_rows, const void* dyn,
+           long long n_dyn, const void* sparse, long long n_sparse,
+           const void* full, long long pw, int n_regs, void* words,
+           void* counts, cudaStream_t stream) {
+  constexpr long long kBlockW = 32 * kLaneWords;
+  const long long n_wblocks = (pw + kBlockW - 1) / kBlockW;
+  const long long n_ctas = (n_wblocks * n_seg + kWarps - 1) / kWarps;
+  if (n_ctas > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(uint32_t) * kWarps *
+      ((size_t)(n_regs + 1) * kBlockW + 2 * (size_t)list_cap + kMaxBatch / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vm_run_kernel<kLaneWords>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  vm_run_kernel<kLaneWords><<<(unsigned)n_ctas, 32 * kWarps, smem, stream>>>(
+      block, block + n_instr, block + 2 * n_instr, n_seg, list_cap, n_wblocks,
+      (const uint32_t*)bank, n_rows, (const uint32_t*)dyn, n_dyn,
+      (const uint32_t*)sparse, n_sparse, (const uint32_t*)full, pw, n_regs,
+      (uint32_t*)words, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (lapis_silo_torch/ops/kernels.py).
-// `seg_starts` holds n_seg + 1 non-decreasing starts from 0 to n_instr, or is
-// null for one segment; `list_cap` is at least the number of distinct EMIT
-// slots of any segment (its longest segment's length serves). `counts` must
-// be zeroed by the caller. Returns cudaGetLastError() after the launch.
-extern "C" int lapis_vm_run(const void* opers, const void* specs, int n_instr,
-                            const void* seg_starts, int n_seg, int list_cap,
-                            const void* bank, long long n_rows,
+// `block` is the program's code block, int32 [2 n_instr + n_seg + 1]: the
+// operands, the packed words, then the n_seg + 1 non-decreasing segment
+// starts from 0 to n_instr. `list_cap` is at least the number of distinct
+// EMIT slots of any segment (its longest segment's length serves). `counts`
+// must be zeroed by the caller. Returns cudaGetLastError() after the launch.
+extern "C" int lapis_vm_run(const void* block, int n_instr, int n_seg,
+                            int list_cap, const void* bank, long long n_rows,
                             const void* dyn, long long n_dyn,
                             const void* sparse, long long n_sparse,
                             const void* full, long long pw, int n_regs,
                             void* words, void* counts, void* stream) {
   if (pw <= 0 || n_seg <= 0) return (int)cudaGetLastError();
-  const long long n_wblocks = (pw + kBlockW - 1) / kBlockW;
-  const long long n_ctas = (n_wblocks * n_seg + kWarps - 1) / kWarps;
-  if (n_ctas > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(uint32_t) * kWarps *
-      ((size_t)(n_regs + 1) * kBlockW + 2 * (size_t)list_cap);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        vm_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  int device = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   }
-  vm_run_kernel<<<(unsigned)n_ctas, 32 * kWarps, smem,
-                  (cudaStream_t)stream>>>(
-      (const int32_t*)opers, (const int32_t*)specs, n_instr,
-      (const int32_t*)seg_starts, n_seg, list_cap, n_wblocks,
-      (const uint32_t*)bank, n_rows, (const uint32_t*)dyn, n_dyn,
-      (const uint32_t*)sparse, n_sparse, (const uint32_t*)full, pw, n_regs,
-      (uint32_t*)words, (int32_t*)counts);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the wide form once its grid gives every SM a CTA of 4 warps
+  const long long wide_units = (pw + 127) / 128 * n_seg;
+  const auto run = wide_units >= (long long)kWarps * n_sm ? launch<4>
+                                                          : launch<1>;
+  return run((const int32_t*)block, n_instr, n_seg, list_cap, bank, n_rows,
+             dyn, n_dyn, sparse, n_sparse, full, pw, n_regs, words, counts,
+             (cudaStream_t)stream);
 }

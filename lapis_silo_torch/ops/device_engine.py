@@ -744,20 +744,28 @@ class DeviceEngine:
         EMIT_COUNT of reg[0] into its query's slot; dyn operands rebased onto
         the merged dyn rows, and sparse leaves deduplicated across the batch
         (queries in a batch often share leaves). Packed once: per-program
-        packing costs numpy small-array overhead per query. Every
-        self-contained program (_Program.self_contained) starts a VM segment
-        of its own, which the kernel runs apart on fresh registers; any
-        other program joins the segment before it."""
+        packing costs numpy small-array overhead per query. Every program
+        that reads no register before writing it (_Program.reads_first 0)
+        starts a VM segment of its own, which the kernel runs apart on fresh
+        registers; any other program joins the segments before it, back to
+        one that writes every register it reads first (or to the first
+        segment, which starts from zeros as the serial run does)."""
         flat_ops: list[int] = []
         flat_opers: list[int] = []
         flat_spec: list[int] = []
         dyn_rows: list = []
         sparse_leaves: list[int] = []
         sparse_slots: dict[int, int] = {}  # global sparse row -> merged slot
-        seg_starts = [0]
+        # (start, registers read before written, registers written)
+        segments: list[tuple[int, int, int]] = []
         for qi, program in enumerate(lowered):
-            if qi and program.self_contained:
-                seg_starts.append(len(flat_ops))
+            start, reads, writes = (len(flat_ops), program.reads_first,
+                                    program.writes)
+            while reads and segments:
+                start, seg_reads, seg_writes = segments.pop()
+                reads = seg_reads | (reads & ~seg_writes)
+                writes |= seg_writes
+            segments.append((start, reads, writes))
             dyn_base = len(dyn_rows)
             operands = list(program.operands)
             if dyn_base or program.sparse_leaves:
@@ -791,7 +799,8 @@ class DeviceEngine:
         n_regs = next(b for b in _REG_BUCKETS
                       if b >= max(p.max_regs for p in lowered))
         n_instr = _round_instr(len(flat_ops))
-        seg_starts.append(n_instr)  # the NOP tail joins the last segment
+        # the NOP tail joins the last segment
+        seg_starts = [start for start, _, _ in segments] + [n_instr]
         return VmArgs(code, n_instr, dyn_rows, n_dyn, n_regs, sparse_leaves,
                       np.asarray(seg_starts, dtype=np.int32))
 

@@ -120,8 +120,8 @@ _lib = None
 _lib_lock = threading.Lock()
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "lapis_vm_run": [_P, _P, _I32, _P, _I32, _I32, _P, _I64, _P, _I64, _P,
-                     _I64, _P, _I64, _I32, _P, _P, _P],
+    "lapis_vm_run": [_P, _I32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P,
+                     _I64, _I32, _P, _P, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
                             _P],
@@ -238,18 +238,6 @@ def _check(name: str, tensor: torch.Tensor, device: torch.device,
         raise ValueError(f"{name}: shape {tuple(tensor.shape)}, want {shape}")
 
 
-def _upload(tensor: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """`tensor` on `device`. A host tensor bound for a card goes through
-    pinned memory without blocking: a copy from pageable memory first
-    waits for the stream's queued work, which would serialise the host's
-    preparation of each launch with the card's run of the one before."""
-    if tensor.device == device:
-        return tensor
-    if device.type == "cuda" and tensor.device.type == "cpu":
-        return tensor.pin_memory().to(device, non_blocking=True)
-    return tensor.to(device)
-
-
 # -- K1: the filter VM ------------------------------------------------------
 
 def _segment_starts(segments, n_instr: int) -> np.ndarray:
@@ -268,20 +256,41 @@ def _segment_starts(segments, n_instr: int) -> np.ndarray:
     return starts.astype(np.int32)
 
 
+def _list_cap(starts: np.ndarray) -> int:
+    """The EMIT list a warp keeps: at most one entry per instruction of its
+    segment, and at most one per slot."""
+    return min(max(int(np.diff(starts).max()), 1), MAX_BATCH_QUERIES)
+
+
 def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
            dyn: torch.Tensor, sparse_rows: torch.Tensor, full: torch.Tensor,
            n_regs: int, segments=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the first `n_instr` instructions of a wire-format program
-    (code [2, L] int32: operands, packed words) over the flat word axis.
-    bank [R, PW], dyn [D, PW], sparse_rows [K, PW] and full [PW] hold u32
-    words as int32. `segments` (host ints, see _segment_starts; None: one
-    segment) splits the program into segments that each run on a zeroed
-    register file; their EMIT counts add. Returns (reg[0] words of the last
-    segment [PW], EMIT counts [4096]), both int32 on the inputs' device."""
+    (code [2, L] int32 on the host: operands, packed words) over the flat
+    word axis. bank [R, PW], dyn [D, PW], sparse_rows [K, PW] and full [PW]
+    hold u32 words as int32. `segments` (host ints, see _segment_starts;
+    None: one segment) splits the program into segments that each run on a
+    zeroed register file; their EMIT counts add. For the kernel the code
+    and the segment starts go to the card as one block, in one copy.
+    Returns (reg[0] words of the last segment [PW], EMIT counts [4096]),
+    both int32 on the inputs' device."""
+    starts = _segment_starts(segments, n_instr)
+    return _vm_run(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
+                   starts, _list_cap(starts), {})
+
+
+def _vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
+            dyn: torch.Tensor, sparse_rows: torch.Tensor, full: torch.Tensor,
+            n_regs: int, starts: np.ndarray, list_cap: int,
+            blocks: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """vm_run with checked segment starts and their _list_cap. `blocks`
+    maps a device to the program's code block there (int32
+    [2 n_instr + n_seg + 1]: operands, packed words, segment starts),
+    uploaded at the first launch on it."""
     device = full.device
     pw = full.shape[0] if full.dim() == 1 else -1
     _check("full", full, device, (None,))
-    _check("code", code, device, (2, None))
+    _check("code", code, torch.device("cpu"), (2, None))
     _check("bank", bank, device, (None, pw))
     _check("dyn", dyn, device, (None, pw))
     _check("sparse_rows", sparse_rows, device, (None, pw))
@@ -291,32 +300,43 @@ def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
         raise ValueError(f"n_regs {n_regs} outside [1, {MAX_REGS}]")
     if min(bank.shape[0], dyn.shape[0], sparse_rows.shape[0]) < 1:
         raise ValueError("bank, dyn and sparse_rows need one row at least")
-    starts = _segment_starts(segments, n_instr)
     if device.type == "cpu":
         return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
                             starts)
     if device.type != "cuda":
         raise ValueError(f"vm_run: no kernel for device {device}")
     lib = load_library()
+    block = blocks.get(device)
+    if block is None:
+        block = blocks[device] = _code_block(code, n_instr, starts).to(
+            device, non_blocking=True)
     words = torch.empty(pw, dtype=torch.int32, device=device)
     counts = torch.zeros(MAX_BATCH_QUERIES, dtype=torch.int32, device=device)
-    # one segment needs no starts on the card; the EMIT list of a warp
-    # holds at most one entry per instruction of its segment
-    starts_dev = (None if segments is None
-                  else _upload(torch.from_numpy(starts), device))
-    max_len = int(np.diff(starts).max())
     with torch.cuda.device(device):
         err = lib.lapis_vm_run(
-            code.data_ptr(), code[1].data_ptr(), n_instr,
-            None if starts_dev is None else starts_dev.data_ptr(),
-            starts.shape[0] - 1, min(max(max_len, 1), MAX_BATCH_QUERIES),
-            bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
+            block.data_ptr(), n_instr, starts.shape[0] - 1, list_cap, bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
             sparse_rows.data_ptr(), sparse_rows.shape[0], full.data_ptr(), pw,
             n_regs, words.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "vm_run")
     VM_RUN.add()
     return words, counts
+
+
+def _code_block(code: torch.Tensor, n_instr: int,
+                starts: np.ndarray) -> torch.Tensor:
+    """The program's code block in pinned host memory, int32
+    [2 n_instr + n_seg + 1]: operands, packed words, segment starts. A copy
+    to a card from pinned memory does not wait for the stream's queued work,
+    as one from pageable memory does, which would serialise the host's
+    preparation of each launch with the card's run of the one before."""
+    block = torch.empty(2 * n_instr + starts.shape[0], dtype=torch.int32,
+                        pin_memory=True)
+    out = block.numpy()
+    out[:n_instr] = code[0, :n_instr].numpy()
+    out[n_instr: 2 * n_instr] = code[1, :n_instr].numpy()
+    out[2 * n_instr:] = starts
+    return block
 
 
 def vm_run_plain(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
@@ -401,21 +421,21 @@ def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
                    n_regs: int, segments=None) -> tuple[list, torch.Tensor]:
     """vm_run on every word shard: shard d's bank [R, PW/D], dyn rows, sparse
     rows and full mask lie on its device, and K1 runs there on that device's
-    current stream (the VM is word-local). `code` is copied once to each
-    distinct device. Every shard's EMIT counts hold the popcount of its own
-    words at a query's last EMIT in each segment, so their sum, taken on the
-    first shard's device, is the global count (the psum of
-    pallas_kernels.py:763). Returns (reg[0] words per shard, counts [4096]
-    int32)."""
+    current stream (the VM is word-local). The code block (code and segment
+    starts) is copied once to each distinct device. Every shard's EMIT
+    counts hold the popcount of its own words at a query's last EMIT in each
+    segment, so their sum, taken on the first shard's device, is the global
+    count (the psum of pallas_kernels.py:763). Returns (reg[0] words per
+    shard, counts [4096] int32)."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
-    codes = {}
+    starts = _segment_starts(segments, n_instr)
+    list_cap = _list_cap(starts)
+    blocks = {}  # the code block, uploaded once per distinct device
     words, counts = [], []
-    for device, bank, dyn, rows, full in zip(devices, banks, dyns,
-                                             sparse_rows, fulls):
-        if device not in codes:
-            codes[device] = _upload(code, device)
-        shard_words, shard_counts = vm_run(codes[device], n_instr, bank, dyn,
-                                           rows, full, n_regs, segments)
+    for bank, dyn, rows, full in zip(banks, dyns, sparse_rows, fulls):
+        shard_words, shard_counts = _vm_run(code, n_instr, bank, dyn, rows,
+                                            full, n_regs, starts, list_cap,
+                                            blocks)
         words.append(shard_words)
         counts.append(shard_counts)
     VM_RUN_SHARDED.add(plain=devices[0].type == "cpu")
@@ -429,10 +449,9 @@ def vm_run_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
     and the same sum."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
     VM_RUN_SHARDED.add(plain=True)
-    outs = [vm_run_plain(code.to(device), n_instr, bank, dyn, rows, full,
-                         n_regs, segments)
-            for device, bank, dyn, rows, full in zip(devices, banks, dyns,
-                                                     sparse_rows, fulls)]
+    outs = [vm_run_plain(code, n_instr, bank, dyn, rows, full, n_regs,
+                         segments)
+            for bank, dyn, rows, full in zip(banks, dyns, sparse_rows, fulls)]
     return ([words for words, _ in outs],
             reduce_sum([counts for _, counts in outs], devices[0]))
 

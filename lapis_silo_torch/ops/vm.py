@@ -164,8 +164,8 @@ class _Program:
         self._sparse_cache: dict = {}
         self.max_regs = MAX_REGS
         # bit masks of the registers read, written, and read before any
-        # write, for self_contained
-        self._reads = self._writes = self._reads_first = 0
+        # write, for reads_first
+        self._reads = self.writes = self._reads_first = 0
 
     def emit(self, opcode: int, operand: int = 0, dst: int = NO_DST,
              ra: int = 0, rb: int = 0, mode: int = 0, bsrc: int = B_REG):
@@ -183,21 +183,20 @@ class _Program:
                 reads |= 1 << ra
             if bsrc == B_REG:
                 reads |= 1 << rb
-        self._reads_first |= reads & ~self._writes
+        self._reads_first |= reads & ~self.writes
         self._reads |= reads
         if dst < MAX_REGS:
-            self._writes |= 1 << dst
+            self.writes |= 1 << dst
 
     @property
-    def self_contained(self) -> bool:
-        """Whether the program, followed by an EMIT_COUNT of reg[0], computes
-        the same on a zeroed register file as after any other program: it
-        reads no register before writing it, writes reg[0], and touches no
-        register at or past max_regs (so no register bucket of a batch
-        clamps its indices). batch_args gives such a program a VM segment
-        of its own."""
-        return (not self._reads_first and self._writes & 1 == 1
-                and (self._reads | self._writes) >> self.max_regs == 0)
+    def reads_first(self) -> int:
+        """Bit mask of the registers the program, followed by an EMIT_COUNT
+        of reg[0], reads before writing them: what it takes from a program
+        run before it. Every bit (-1) when it touches a register at or past
+        max_regs, where a batch's register bucket may clamp its indices."""
+        if (self._reads | self.writes) >> self.max_regs:
+            return -1
+        return self._reads_first | (~self.writes & 1)
 
     def alu(self, mode: int, dst: int, ra: int, rb: int = 0):
         """reg[dst] = mode(reg[ra], reg[rb])"""

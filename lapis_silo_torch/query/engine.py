@@ -1,4 +1,4 @@
-"""Query engine driver.
+"""The query engine.
 
 Parity with reference src/silo/query_engine/query_engine.cpp: parse the JSON
 query, compile the filter per partition, evaluate to packed bitsets, hand

@@ -1,5 +1,5 @@
-"""Synthetic corpus generation for benchmarks, the driver entrypoints, and
-multi-chip dry-runs — builds a Database directly (no input files needed).
+"""Synthetic corpus generation for benchmarks, tests and the smoke run on
+the card — builds a Database directly (no input files needed).
 
 Genomes are the reference sequence plus ~`mutations_per_genome` random point
 mutations, which reproduces the real workload's structure: the reference-

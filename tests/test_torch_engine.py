@@ -217,7 +217,7 @@ def test_batch_segments_match_xla_whole_program(tier, monkeypatch):
             lowered.append(engine.lower(query.filter)[0])
         except (ProgramTooLarge, StructureMismatch):
             continue
-    assert all(program.self_contained for program in lowered)
+    assert all(program.reads_first == 0 for program in lowered)
     n_sparse = 0
     for i in range(0, len(lowered), 12):
         batch = lowered[i: i + 12]
@@ -253,7 +253,7 @@ def test_dependent_program_joins_the_segment_before_it():
     third.load(0, vm.B_BANK, 3)
     for program in (first, second, third):
         program.max_regs = 2
-    assert [p.self_contained for p in (first, second, third)] == [
+    assert [p.reads_first == 0 for p in (first, second, third)] == [
         True, False, True]
     args = engine.batch_args([first, second, third])
     assert args.seg_starts.tolist() == [0, 5, args.n_instr]
@@ -269,6 +269,44 @@ def test_dependent_program_joins_the_segment_before_it():
         int(engine._dense_row_counts[5]), row3, row3]
     (got, q), = engine.count_dispatches([first, second, third])
     assert got[:q].tolist() == counts[:3].tolist()
+
+
+@pytest.mark.parametrize("max_regs_of_last", [2, 1])
+def test_dependent_program_merges_back_to_its_writer(max_regs_of_last):
+    """A program that reads a register written two programs before it, past
+    a self-contained one that does not write it, merges back through both
+    segments; so does one that touches a register past its max_regs (its
+    reads are not known under the batch's register bucket). The counts equal
+    the XLA interpreter's serial run."""
+    db = synthetic_database(700, 150, n_partitions=2, seed=13)
+    engine = DeviceEngine(db, CPU)
+    first, second, third, fourth = (vm._Program() for _ in range(4))
+    first.load(2, vm.B_BANK, 3)
+    first.load(0, vm.B_BANK, 5)
+    second.load(0, vm.B_BANK, 7)
+    third.alu(vm.M_OR, 0, 2, 2)  # reg[2] from the first program
+    fourth.load(1, vm.B_BANK, 3)
+    fourth.alu(vm.M_AND, 0, 1, 1)
+    for program in (first, second, third):
+        program.max_regs = 3
+    fourth.max_regs = max_regs_of_last
+    assert [p.reads_first == 0 for p in (first, second, third, fourth)] == [
+        True, True, False, max_regs_of_last > 1]
+    args = engine.batch_args([first, second, third, fourth])
+    # the first three programs take 3 + 2 + 2 instructions with their EMITs
+    starts = [0, 7] if max_regs_of_last > 1 else [0]
+    assert args.seg_starts.tolist() == starts + [args.n_instr]
+    want_words, want_counts = _xla_whole_program(engine, args, None)
+    code, n_instr, banks, dyns, rows, fulls, n_regs, seg_starts = (
+        engine.kernel_inputs(args))
+    words, counts = kernels.vm_run_plain(code, n_instr, banks[0], dyns[0],
+                                         rows[0], fulls[0], n_regs, seg_starts)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want_words)
+    row3 = int(engine._dense_row_counts[3])
+    assert row3 > 0 and counts[:4].tolist() == [
+        int(engine._dense_row_counts[5]), int(engine._dense_row_counts[7]),
+        row3, row3]
 
 
 def test_concurrent_counts_coalesce_exactly():

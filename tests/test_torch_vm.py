@@ -197,7 +197,7 @@ def test_vm_wrapper_runs_plain_version_on_cpu_and_counts_it():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "n_instr", "n_regs",
-                                 "contiguous"])
+                                 "contiguous", "code_device"])
 def test_vm_wrapper_rejects_bad_inputs(bad):
     pw = 64
     code = torch.zeros((2, 16), dtype=torch.int32)
@@ -214,6 +214,8 @@ def test_vm_wrapper_rejects_bad_inputs(bad):
         n_instr = 17
     elif bad == "n_regs":
         n_regs = vm.MAX_REGS + 1
+    elif bad == "code_device":  # the code block is built on the host
+        code = torch.zeros((2, 16), dtype=torch.int32, device="meta")
     else:
         bank = torch.zeros((pw, 4), dtype=torch.int32).t()
     with pytest.raises(ValueError):
@@ -238,7 +240,7 @@ def test_vm_kernel_matches_plain_on_card(cuda_device, n_regs, pw):
             for a in (code, *host)]
     n_instr = vm._round_instr(len(ops))
     want = kernels.vm_run(args[0], n_instr, *args[1:], n_regs)
-    got = kernels.vm_run(args[0].to(cuda_device), n_instr,
+    got = kernels.vm_run(args[0], n_instr,
                          *(a.to(cuda_device) for a in args[1:]), n_regs)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -261,7 +263,7 @@ def test_vm_kernel_segments_match_plain_on_card(cuda_device, n_regs, pw,
     n_instr = vm._round_instr(len(ops))
     starts = _random_segments(rng, n_instr, n_cuts)
     want = kernels.vm_run(args[0], n_instr, *args[1:], n_regs, starts)
-    got = kernels.vm_run(args[0].to(cuda_device), n_instr,
+    got = kernels.vm_run(args[0], n_instr,
                          *(a.to(cuda_device) for a in args[1:]), n_regs,
                          starts)
     for g, w in zip(got, want):
