@@ -18,7 +18,9 @@ Phases, one line each or more (the last line is the JSON verdict):
      bound, the larger of its bytes over the HBM rate and its operations
      over the peak rate (the two-tier shapes are compared in phase 7's
      set-up, the sharded ones in phase 8a's, the windowed and chunked ones
-     in 8b's);
+     in 8b's; there the densify kernels also take their wall time per call
+     through the engine's route, a pool-update chunk's included, beside
+     zero_() of a block of the same shape);
   4. the dense main path at the bench default, 65,536 sequences x 29,903
      positions in 1 partition: (a) 64 count queries through
      db.execute_query, one at a time and then from a thread pool so the
@@ -132,12 +134,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wall_ms(fn, reps: int) -> float:
-    """Wall time per call of fn() in ms, host time included: synchronize,
-    `reps` calls, synchronize."""
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Wall time per call of fn() in ms, host time included: `warmup`
+    calls, synchronize, `reps` calls, synchronize."""
     import torch
 
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -306,8 +309,10 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     program as one segment and cut into random segments (empty ones and
     segments of one instruction included), also over 4 word shards; for the
     Mutations kernel unaligned segments; for the sparse kernels empty
-    segments, ragged PWs, K = 1, K = 1,024 (the two-tier poolless cap) and a
-    4,096-leaf pool update, with pool slots including the scratch row.
+    segments, ragged PWs, K = 1, K = 1,024 (the two-tier poolless cap), a
+    4,096-leaf pool update, with pool slots including the scratch row, and
+    densify's tile edges (segments longer than a tile, windows that start
+    mid-partition and at an odd offset, a leaf inside one tile).
     Returns the largest error per kernel."""
     rng = np.random.default_rng(0)
     err = {k.name: 0 for k in kernels.KERNELS}
@@ -366,20 +371,25 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
         want = kernels.mutation_counts_plain(bank, filt, start, n_rows)
         err["mutation_counts"] = max(err["mutation_counts"],
                                      max_abs_err(got, want))
-    for n_leaves, n_parts, part_words, n_pool in (
-            (1, 1, 131, 1), (37, 3, 2045, 37), (1024, 8, 64, 1500),
-            (4096, 8, 16, 4096)):
+    # the last two are densify's tile edges: segments longer than a tile of
+    # 4,096 words, a PW that is no multiple of the tile or of 4; and all of
+    # a leaf's entries in one tile
+    for n_leaves, n_parts, part_words, n_pool, max_len in (
+            (1, 1, 131, 1, 300), (37, 3, 2045, 37, 300),
+            (1024, 8, 64, 1500, 12), (4096, 8, 16, 4096, 12),
+            (9, 3, 10007, 11, 9000), (64, 1, 4000, 70, 3000)):
         idx, words, starts, lens = (dev(a) for a in random_stream(
-            rng, n_leaves, n_parts, part_words, 12 if part_words < 100 else 300))
+            rng, n_leaves, n_parts, part_words, max_len))
         pw = n_parts * part_words
         filt = dev(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32))
         err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
             kernels.sparse_counts(idx, words, filt, starts, lens),
             kernels.sparse_counts_plain(idx, words, filt, starts, lens)))
-        # the whole row, then the windows of 3 word shards (their edges fall
-        # inside partitions)
+        # the whole row, the windows of 3 word shards (their edges fall
+        # inside partitions), and one at an odd offset
         for window, w_off in ((pw, 0), *((pw // 3, d * (pw // 3))
-                                         for d in range(3))):
+                                         for d in range(3)),
+                              (pw // 2, pw // 3 + 1)):
             err["densify_rows"] = max(err["densify_rows"], max_abs_err(
                 kernels.densify_rows(idx, words, starts, lens, window, w_off),
                 kernels.densify_rows_plain(idx, words, starts, lens, window,
@@ -416,9 +426,15 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
     against the sum of the chunks' plain results), densify_rows for
     max_sparse_k leaves into each shard's window, densify_rows_into_pool for
     one _pool_update_k_cap chunk into each shard's window of a pool-sized
-    block (the engine's own pool is left alone). The shards on one card run
-    one after another; a time covers all of them. Returns {kernel: (ms,
-    plain ms, bytes, operations)}, the last two for the bound."""
+    block (the engine's own pool is left alone). The densify inputs lie on
+    the card (bounds and slots uploaded once per device, as the engine
+    does), so the queued time is the kernels' device time; the wall time per
+    call goes through the engine's route (_densified, and _update_pools,
+    the body of _eager_update_chunks), host checks and uploads included.
+    Beside them, zero_() of a block of the same [K, PW/D] shape per shard:
+    what this card's write path reaches. The shards on one card run one
+    after another; a time covers all of them. Returns {kernel: (ms, plain
+    ms, bytes, operations)}, the last two for the bound."""
     from lapis_silo_torch.parallel.shards import reduce_sum
 
     rng = np.random.default_rng(7)
@@ -442,14 +458,25 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         *stream_work(engine.sparse_starts_pp, engine.sparse_lengths_pp,
                      engine.n_sparse, pw))
 
-    def window_args(bounds):
-        return [engine._window_stream(bounds, d) for d in range(len(shards))]
+    def shard_inputs(bounds, slots=None):
+        """Per shard: (idx, words, starts, lens[, slots]) on its device."""
+        per_device = {d: kernels.densify_inputs(bounds, slots, d)
+                      for d in shards.distinct}
+        return [(*engine._stream_on[d], *per_device[d])
+                for d in shards.devices]
 
-    rows_bounds = engine._bounds(rng.choice(engine.n_sparse,
-                                            size=engine.max_sparse_k,
-                                            replace=False))
-    rows_args = [(*args, shards.local_words, w_off) for args, w_off in zip(
-        window_args(rows_bounds), shards.offsets)]
+    def zero_ms(n_rows: int) -> float:
+        blocks = [torch.empty((n_rows, shards.local_words), dtype=torch.int32,
+                              device=d) for d in shards.devices]
+        ms = cuda_ms(lambda: [block.zero_() for block in blocks], reps=20)
+        del blocks
+        return ms
+
+    rows_ids = rng.choice(engine.n_sparse, size=engine.max_sparse_k,
+                          replace=False)
+    rows_bounds = engine._bounds(rows_ids)
+    rows_args = [(*inputs, shards.local_words, w_off) for inputs, w_off in zip(
+        shard_inputs(rows_bounds), shards.offsets)]
     for args in rows_args:
         err["densify_rows"] = max(err["densify_rows"], max_abs_err(
             kernels.densify_rows(*args), kernels.densify_rows_plain(*args)))
@@ -459,21 +486,24 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         cuda_ms(lambda: [kernels.densify_rows_plain(*a) for a in rows_args],
                 reps=2, warmup=1),
         *stream_work(*rows_bounds, engine.max_sparse_k * pw))
+    # warmed with as many calls as are timed: a call stages its inputs in a
+    # pinned block, and the host allocator caches as many as are in flight
+    rows_wall = wall_ms(lambda: engine._densified(rows_ids), reps=20,
+                        warmup=20)
+    rows_zero = zero_ms(engine.max_sparse_k)
 
     k_cap = min(engine._pool_update_k_cap, engine.pool_slots)
-    pool_bounds = engine._bounds(rng.choice(engine.n_sparse, size=k_cap,
-                                            replace=False))
-    streams = window_args(pool_bounds)
+    pool_ids = rng.choice(engine.n_sparse, size=k_cap, replace=False)
+    pool_bounds = engine._bounds(pool_ids)
     slots = np.concatenate([[engine.pool_slots], rng.permutation(
-        engine.pool_slots)[: k_cap - 1]]).tolist()
+        engine.pool_slots)[: k_cap - 1]]).astype(np.int32)
     pools = [torch.randint(-2**31, 2**31 - 1,
                            (engine.pool_slots + 1, shards.local_words),
                            dtype=torch.int32, device=d) for d in shards.devices]
     wants = [pool.clone() for pool in pools]
-    pool_args = [(pool, *stream, slots, w_off) for pool, stream, w_off
-                 in zip(pools, streams, shards.offsets)]
-    want_args = [(want, *stream, slots, w_off) for want, stream, w_off
-                 in zip(wants, streams, shards.offsets)]
+    pool_args = [(pool, *inputs, w_off) for pool, inputs, w_off
+                 in zip(pools, shard_inputs(pool_bounds, slots), shards.offsets)]
+    want_args = [(want, *args[1:]) for want, args in zip(wants, pool_args)]
     for args, wargs in zip(pool_args, want_args):
         kernels.densify_rows_into_pool(*args)
         kernels.densify_rows_into_pool_plain(*wargs)
@@ -485,6 +515,14 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         cuda_ms(lambda: [kernels.densify_rows_into_pool_plain(*a)
                          for a in want_args], reps=2, warmup=1),
         *stream_work(*pool_bounds, k_cap * pw, k_cap))
+    pool_wall = wall_ms(lambda: engine._update_pools(pools, pool_ids, slots),
+                        reps=10, warmup=10)
+    # the engine's route wrote the same leaves into the same slots
+    for pool, want in zip(pools, wants):
+        err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
+                                            max_abs_err(pool, want))
+    del pools, wants, pool_args, want_args
+    pool_zero = zero_ms(k_cap)
     n_entries = engine.sparse_idx.shape[0]
     log(f"{label} kernels", f"two-tier shapes on {len(shards)} shard(s) of "
         f"{shards.local_words} words bit-exact, max_abs_err "
@@ -494,12 +532,19 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
         f"{len(chunks)} chunk(s): kernel {timings['sparse_counts'][0]:.4f} ms, "
         f"plain {timings['sparse_counts'][1]:.2f} ms; densify_rows "
         f"{engine.max_sparse_k} leaves into each window: kernel "
-        f"{timings['densify_rows'][0]:.4f} ms, plain "
+        f"{timings['densify_rows'][0]:.4f} ms on the card, "
+        f"{rows_wall:.4f} ms wall per _densified call, plain "
         f"{timings['densify_rows'][1]:.2f} ms; densify_rows_into_pool "
         f"{k_cap} leaves into {engine.pool_slots + 1} rows of each window: "
-        f"kernel {timings['densify_rows_into_pool'][0]:.4f} ms, plain "
-        f"{timings['densify_rows_into_pool'][1]:.2f} ms")
-    del pools, wants, pool_args, want_args
+        f"kernel {timings['densify_rows_into_pool'][0]:.4f} ms on the card, "
+        f"{pool_wall:.4f} ms wall per update chunk (_update_pools: slots "
+        f"checked, bounds and slots uploaded once per card, one launch per "
+        f"shard), plain {timings['densify_rows_into_pool'][1]:.2f} ms")
+    log(f"{label} yardstick", f"zero_() of [{engine.max_sparse_k}, "
+        f"{shards.local_words}] per shard {rows_zero:.4f} ms "
+        f"({engine.max_sparse_k * pw * 4 / rows_zero / 1e6:.0f} GB/s), of "
+        f"[{k_cap}, {shards.local_words}] per shard {pool_zero:.4f} ms "
+        f"({k_cap * pw * 4 / pool_zero / 1e6:.0f} GB/s)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return timings

@@ -79,6 +79,9 @@ from .vm import (
 )
 from .words import to_device, to_host
 
+# the densify and sparse-counts kernels take stream offsets as int32
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
 
 @dataclass
 class BankState:
@@ -178,6 +181,27 @@ def _sparse_stream(partitions, segments, segment_meta, n_sparse: int,
     words = (np.concatenate(word_chunks) if word_chunks
              else np.zeros(0, np.uint32))
     return idx, words, starts_pp, lens_pp
+
+
+def _check_stream(idx: np.ndarray, starts: np.ndarray,
+                  lens: np.ndarray) -> None:
+    """The densify kernels' contract (csrc/densify.cu): within every (leaf,
+    partition) segment the word indices strictly ascend. `_sparse_stream`
+    keeps it by construction (the row stores give each row's words in
+    ascending order: np.nonzero over a dense row, CsrRowStore.from_coo's
+    lexsort). One vectorised pass: a step of the stream that does not ascend
+    may only fall between two segments; ValueError otherwise."""
+    falls = np.flatnonzero(idx[1:] <= idx[:-1]) + 1
+    starts = np.asarray(starts, dtype=np.int64).reshape(-1)
+    ends = np.minimum(starts + np.asarray(lens, dtype=np.int64).reshape(-1),
+                      len(idx))
+    starts = np.maximum(starts, 0)
+    inside = (np.searchsorted(falls, ends, "left")
+              - np.searchsorted(falls, starts, "right"))
+    bad = np.flatnonzero((ends > starts) & (inside > 0))
+    if bad.size:
+        raise ValueError(f"{bad.size} stream segments do not strictly ascend "
+                         f"(first: flat segment {int(bad[0])})")
 
 
 def build_state(database, device: torch.device,
@@ -297,6 +321,7 @@ def build_state(database, device: torch.device,
     if n_sparse:
         idx, words, starts_pp, lens_pp = _sparse_stream(
             partitions, segments, segment_meta, n_sparse, n_words)
+        _check_stream(idx, starts_pp, lens_pp)
         state.sparse_idx = to_device(idx, layout.devices[0])
         state.sparse_words = to_device(words, layout.devices[0])
         state.sparse_starts_pp, state.sparse_lengths_pp = starts_pp, lens_pp
@@ -333,7 +358,9 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
     lens = np.asarray(sparse_lengths_pp, dtype=np.int64)
     n_live = int(lens.sum())
     groups = np.asarray(sparse_stream, dtype=np.uint32).reshape(-1, 2, 8, 128)
-    state.sparse_idx = to_device(groups[:, 0].reshape(-1)[:n_live], device)
+    idx = groups[:, 0].reshape(-1)[:n_live]
+    _check_stream(idx, starts, lens)
+    state.sparse_idx = to_device(idx, device)
     state.sparse_words = to_device(groups[:, 1].reshape(-1)[:n_live], device)
     state.sparse_starts_pp, state.sparse_lengths_pp = starts, lens
     return state
@@ -388,6 +415,10 @@ class DeviceEngine:
         self.sparse_lengths_pp = state.sparse_lengths_pp
         self.n_sparse = sum(len(meta["sparse_sym_ids"])
                             for meta in self.segment_meta.values())
+        # where the stream's segments end (_launch_bounds)
+        self._stream_end = (int((self.sparse_starts_pp
+                                 + self.sparse_lengths_pp).max())
+                            if self.n_sparse else 0)
         # the stream once on each distinct device (the reference replicates
         # it over the mesh, device_engine.py:383-394)
         self._stream_on = {}
@@ -426,6 +457,10 @@ class DeviceEngine:
         if self.n_sparse:
             for shard, (lo, hi) in zip(self.shards.devices, entry_chunks(
                     self.sparse_idx.shape[0], len(self.shards))):
+                if hi - lo > _INT32_MAX:  # K3 takes chunk offsets as int32
+                    raise ValueError(f"a stream chunk of {hi - lo} entries "
+                                     f"exceeds int32: shard the words over "
+                                     f"more devices")
                 idx, words = self._stream_on[shard]
                 self._sparse_chunks.append((idx[lo:hi], words[lo:hi], *(
                     torch.from_numpy(a.astype(np.int32)).to(shard)
@@ -608,16 +643,25 @@ class DeviceEngine:
         self._free_slots = []
 
     def _eager_update_chunks(self, chunks) -> None:
-        """Densify each update chunk into its pool slots, one launch per
-        chunk and shard, each shard writing its own window. Caller holds
+        """Densify each update chunk into its pool slots. Caller holds
         _pool_lock and drops the pool on failure."""
         for ids, slots in chunks:
-            bounds = self._bounds(ids)
-            for shard, pool in enumerate(self.leaf_pool):
-                kernels.densify_rows_into_pool(
-                    pool, *self._window_stream(bounds, shard), slots,
-                    self.shards.offsets[shard])
+            self._update_pools(self.leaf_pool, ids, slots)
             self.pool_update_dispatches += 1
+
+    def _update_pools(self, pools: list, leaf_ids, slots) -> None:
+        """One update chunk into `pools` (one [C + 1, PW/D] tensor per
+        shard): the slots are checked once, and the chunk's bounds and slots
+        go to each distinct device as one block (kernels.densify_inputs);
+        then one K5 launch per shard writes the shard's window."""
+        bounds = self._launch_bounds(leaf_ids)
+        slots = kernels.check_slots(slots, len(leaf_ids), self.pool_slots + 1)
+        inputs = {device: kernels.densify_inputs(bounds, slots, device)
+                  for device in self.shards.distinct}
+        for device, pool, w_off in zip(self.shards.devices, pools,
+                                       self.shards.offsets):
+            kernels.densify_rows_into_pool(pool, *self._stream_on[device],
+                                           *inputs[device], w_off)
 
     def warm_pool_updates(self):
         """Allocate the pool before a snapshot goes live (the watcher calls
@@ -653,46 +697,38 @@ class DeviceEngine:
         return np.stack([self.sparse_starts_pp[ids],
                          self.sparse_lengths_pp[ids]])
 
-    def _bounds_on_device(self, bounds: np.ndarray, device=None):
-        """(starts, lens) [K, P] int32 on the device (or `device`), in one
-        upload."""
-        both = torch.from_numpy(bounds.astype(np.int32)).to(
-            self.device if device is None else device)
-        return both[0], both[1]
-
-    def _window_stream(self, bounds: np.ndarray, shard: int) -> tuple:
-        """(idx, words, starts, lens) on the shard's device for a densify
-        of the leaves with `bounds` [2, K, P] into the shard's window: only
-        the segments of the partitions that overlap the window (one device:
-        all of them)."""
-        device = self.shards.devices[shard]
-        p_lo, p_hi = self.shards.partitions(shard)
-        if p_hi - p_lo < self.n_partitions:
-            bounds = np.ascontiguousarray(bounds[:, :, p_lo:p_hi])
-        return (*self._stream_on[device],
-                *self._bounds_on_device(bounds, device))
+    def _launch_bounds(self, leaf_ids) -> np.ndarray:
+        """_bounds of a densify launch's leaves, which the kernels take as
+        int32. Where the stream ends past int32 (measured at build), a
+        launch whose offsets pass it raises ProgramTooLarge on either route,
+        the reference's check (device_engine.py:903-905); a stream that
+        ends within int32 needs no per-launch look."""
+        bounds = self._bounds(leaf_ids)
+        if (self._stream_end > _INT32_MAX and bounds.size
+                and int((bounds[0] + bounds[1]).max()) > _INT32_MAX):
+            raise ProgramTooLarge("sparse stream offsets exceed int32")
+        return bounds
 
     def _assemble_sparse(self, sparse_leaves: list[int]) -> np.ndarray:
         """The bounds of a poolless launch's leaves, with the reference's
         two checks (device_engine.py:897-905): the live entries fit the
         entry limit, and every stream offset fits int32."""
-        bounds = self._bounds(sparse_leaves)
-        starts, lens = bounds
-        e_needed = int(lens.sum())
+        bounds = self._launch_bounds(sparse_leaves)
+        e_needed = int(bounds[1].sum())
         if e_needed > _SPARSE_E_MAX:
             raise ProgramTooLarge(f"sparse entries {e_needed}")
-        if len(sparse_leaves) and (int(starts.max() + lens.max())
-                                   > np.iinfo(np.int32).max):
-            raise ProgramTooLarge("sparse stream offsets exceed int32")
         return bounds
 
     def _densified(self, sparse_leaves: list[int]) -> list[torch.Tensor]:
         """[K, PW/D] densified rows of the leaves, in their order, per
-        shard."""
+        shard; the bounds go to each distinct device as one block."""
         bounds = self._assemble_sparse(sparse_leaves)
-        return [kernels.densify_rows(*self._window_stream(bounds, shard),
+        inputs = {device: kernels.densify_inputs(bounds, None, device)
+                  for device in self.shards.distinct}
+        return [kernels.densify_rows(*self._stream_on[device], *inputs[device],
                                      self.shards.local_words, w_off)
-                for shard, w_off in enumerate(self.shards.offsets)]
+                for device, w_off in zip(self.shards.devices,
+                                         self.shards.offsets)]
 
     # -- lowering -----------------------------------------------------------
 

@@ -128,7 +128,7 @@ _SIGNATURES = {
     "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P,
                            _P],
     "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
-                                     _I64, _P, _P, _P],
+                                     _I64, _P, _I64, _P, _P],
 }
 
 
@@ -601,12 +601,69 @@ def _check_window(pw: int, w_off: int) -> None:
         raise ValueError(f"w_off {w_off} < 0")
 
 
+def check_slots(slots, n_leaves: int, n_rows: int) -> np.ndarray:
+    """Host slots (a list, an array or a CPU tensor of ints) checked as the
+    rows one K5 launch writes: one per leaf, inside the pool's `n_rows`
+    rows, distinct. Returns them as int32 [n_leaves]."""
+    host = np.asarray(slots).reshape(-1)
+    if host.size and not np.issubdtype(host.dtype, np.integer):
+        raise ValueError(f"slots: want ints, got {host.dtype}")
+    if host.shape[0] != n_leaves:
+        raise ValueError(f"{host.shape[0]} slots for {n_leaves} leaves")
+    if host.size and (host.min() < 0 or host.max() >= n_rows):
+        raise ValueError(f"slots outside the pool's rows [0, {n_rows})")
+    ordered = np.sort(host)
+    if (ordered[1:] == ordered[:-1]).any():
+        raise ValueError("slots of one launch must be distinct")
+    return host.astype(np.int32)
+
+
+def _staged(size: int, device: torch.device) -> torch.Tensor:
+    """An int32 host block of `size` to fill and _send to `device`: pinned
+    for a card."""
+    return torch.empty(size, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+
+
+def _send(block: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A _staged block on `device`: one copy, not waiting for the card."""
+    return (block.to(device, non_blocking=True) if device.type == "cuda"
+            else block)
+
+
+def densify_inputs(bounds: np.ndarray, slots: np.ndarray | None,
+                   device: torch.device) -> tuple:
+    """A densify launch's per-leaf inputs on `device` from ONE block: the
+    bounds [2, K, P] (host ints that fit int32) as (starts, lens) [K, P],
+    and the K5 slots [K] (checked host int32, or None) after them. For a
+    card the block is staged in pinned memory and copied with
+    non_blocking=True: a copy from pageable memory would wait for the
+    stream's queued work (PyTorch's pinned allocator keeps the block until
+    the copy has run, as for _code_block)."""
+    n_leaves, n_parts = bounds.shape[1:]
+    n_bounds = 2 * n_leaves * n_parts
+    block = _staged(n_bounds + (0 if slots is None else n_leaves), device)
+    host = block.numpy()
+    host[:n_bounds] = bounds.reshape(-1)
+    if slots is not None:
+        host[n_bounds:] = slots
+    block = _send(block, device)
+    starts = block[:n_bounds // 2].view(n_leaves, n_parts)
+    lens = block[n_bounds // 2:n_bounds].view(n_leaves, n_parts)
+    return (starts, lens) if slots is None else (starts, lens,
+                                                 block[n_bounds:])
+
+
 def densify_rows(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
                  lens: torch.Tensor, pw: int, w_off: int = 0) -> torch.Tensor:
     """[K, pw] int32 rows over the global words [w_off, w_off + pw): row k
     is zero except at the entries of leaf k's segments (starts/lens [K, P])
     whose index lies in that window, where row[idx[e] - w_off] = words[e].
-    Entries past the stream or outside the window are skipped."""
+    Entries past the stream or outside the window are skipped. The kernel
+    takes the stream's contract: within each (leaf, partition) segment the
+    indices strictly ascend, as the engine's stream does by construction
+    (device_engine._check_stream); for every stream that keeps it, kernel
+    and plain version agree bit for bit."""
     device = idx.device
     _check_stream(idx, words, starts, lens, device)
     _check_window(pw, w_off)
@@ -632,20 +689,22 @@ def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
                            lens: torch.Tensor, slots, w_off: int = 0) -> None:
     """densify_rows over the window of pool [C + 1, pw] int32 at `w_off`,
     with leaf k written in place into pool row slots[k]; every other pool
-    row stays as it was. `slots` (K ints, on the host) must be distinct rows
-    of the pool."""
+    row stays as it was. `slots` are K distinct rows of the pool: host ints,
+    which are checked (check_slots) and uploaded, or an int32 tensor [K]
+    already on the pool's device, which the caller has checked (the engine
+    checks and uploads each update chunk once). The stream's contract is
+    densify_rows'."""
     device = pool.device
     _check("pool", pool, device, (None, None))
     _check_stream(idx, words, starts, lens, device)
     _check_window(pool.shape[1], w_off)
-    slots = torch.as_tensor(slots, dtype=torch.int32).reshape(-1)
-    if slots.shape[0] != starts.shape[0]:
-        raise ValueError(f"{slots.shape[0]} slots for {starts.shape[0]} leaves")
-    if slots.numel() and (int(slots.min()) < 0
-                          or int(slots.max()) >= pool.shape[0]):
-        raise ValueError(f"slots outside the pool's rows [0, {pool.shape[0]})")
-    if torch.unique(slots).numel() != slots.numel():
-        raise ValueError("slots of one launch must be distinct")
+    if isinstance(slots, torch.Tensor) and slots.device == device:
+        _check("slots", slots, device, (starts.shape[0],))
+    else:
+        host = check_slots(slots, starts.shape[0], pool.shape[0])
+        slots = _staged(host.shape[0], device)
+        slots.numpy()[:] = host
+        slots = _send(slots, device)
     if device.type == "cpu":
         densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots,
                                      w_off)
@@ -653,13 +712,12 @@ def densify_rows_into_pool(pool: torch.Tensor, idx: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"densify_rows_into_pool: no kernel for device {device}")
     lib = load_library()
-    slots = slots.to(device)
     with torch.cuda.device(device):
         err = lib.lapis_densify_rows_into_pool(
             idx.data_ptr(), words.data_ptr(), starts.data_ptr(),
             lens.data_ptr(), starts.shape[0], starts.shape[1], pool.shape[1],
-            w_off, idx.shape[0], slots.data_ptr(), pool.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+            w_off, idx.shape[0], slots.data_ptr(), pool.shape[0],
+            pool.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "densify_rows_into_pool")
     DENSIFY_INTO_POOL.add()
 

@@ -461,6 +461,43 @@ def test_sharded_engine_matches_jax_mesh_kernel_route(two_tier_db,
         ref_de.vm._pool_update_jit.cache_clear()
 
 
+def test_pool_update_chunks_upload_once_per_device(two_tier_db, two_tier_ref,
+                                                  monkeypatch):
+    """_eager_update_chunks on 4 CPU shards of one device: each chunk's
+    slots are checked and its bounds and slots staged once for the device
+    (kernels.densify_inputs), every shard takes all P segments, the pool
+    shards hold each resident leaf's densified row (the plain K4 of the
+    whole row, split at the windows), and the counts equal the JAX mesh
+    engine's."""
+    port = DeviceEngine(two_tier_db, CPU, sparse_min_words=1,
+                        devices=[CPU] * 4)
+    port._pool_update_k_cap = 8
+    staged = []
+    real = kernels.densify_inputs
+
+    def spy(bounds, slots, device):
+        staged.append((bounds.shape, slots is not None, device))
+        return real(bounds, slots, device)
+
+    monkeypatch.setattr(kernels, "densify_inputs", spy)
+    queries = sample_count_queries(two_tier_db, 24, seed=12)
+    kernels.reset_counts()
+    got = port.count_programs([port.lower(f)[0] for f in _filters(queries)])
+    assert got == two_tier_ref.count_batch(_ref_filters(queries))
+    n_chunks = port.pool_update_dispatches
+    assert n_chunks > 1 and len(staged) == n_chunks
+    assert all(shape[2] == port.n_partitions and with_slots and device == CPU
+               for shape, with_slots, device in staged)
+    assert kernels.DENSIFY_INTO_POOL.plain_launches == 4 * n_chunks
+    leaves = list(port._leaf_slot)
+    starts, lens = (torch.from_numpy(a.astype(np.int32))
+                    for a in port._bounds(leaves))
+    whole = kernels.densify_rows_plain(port.sparse_idx, port.sparse_words,
+                                       starts, lens, port.n_flat_words)
+    pool = gather_words(port.leaf_pool, "cpu")
+    assert torch.equal(pool[[port._leaf_slot[leaf] for leaf in leaves]], whole)
+
+
 def test_execute_query_through_sharded_install(monkeypatch):
     """install(db, device, devices=[...]) with the tier forced by the budget
     rule and a pool from SILO_LEAF_POOL_GB: counts and Mutations through

@@ -196,6 +196,51 @@ def test_sparse_wrappers_count_plain_runs_and_check_inputs():
         kernels.densify_rows(*args[:3], args[3][:, :1].contiguous(), 256)
 
 
+def test_densify_into_pool_takes_slots_on_the_pool_device():
+    """Slots already on the pool's device (an int32 tensor, as the engine
+    passes them after its once-per-chunk check) give the pool the host-list
+    call gives; host slots that are not ints raise."""
+    rng = np.random.default_rng(4)
+    idx, words, starts, lens = _stream(rng, 6, 3, 200, 60, empty=[(2, 1)])
+    args = (_t(idx), _t(words), _t(starts), _t(lens))
+    old = _t(rng.integers(0, 2**32, size=(9, 400), dtype=np.uint32))
+    slots = [8, 0, 5, 2, 7, 3]
+    want, got = old.clone(), old.clone()
+    kernels.densify_rows_into_pool(want, *args, slots, 100)
+    before = kernels.DENSIFY_INTO_POOL.plain_launches
+    kernels.densify_rows_into_pool(got, *args, torch.tensor(
+        slots, dtype=torch.int32), 100)
+    assert kernels.DENSIFY_INTO_POOL.plain_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[[1, 4, 6]], old[[1, 4, 6]])
+    with pytest.raises(ValueError):
+        kernels.densify_rows_into_pool(got, *args, np.array(slots, float))
+    with pytest.raises(ValueError):  # a device slot tensor of the wrong shape
+        kernels.densify_rows_into_pool(got, *args, torch.tensor(
+            slots[:-1], dtype=torch.int32))
+
+
+def test_densify_inputs_are_one_block():
+    """The per-launch inputs of a densify (bounds, and K5's slots) come from
+    one int32 block: starts and lens [K, P] and the slots [K], contiguous
+    views, equal to the host values."""
+    rng = np.random.default_rng(6)
+    bounds = rng.integers(0, 2**31 - 1, size=(2, 5, 3))
+    slots = np.array([4, 0, 9, 2, 7], np.int32)
+    starts, lens, dev_slots = kernels.densify_inputs(bounds, slots,
+                                                     torch.device("cpu"))
+    assert starts.untyped_storage().data_ptr() == \
+        dev_slots.untyped_storage().data_ptr()
+    for got, want in ((starts, bounds[0]), (lens, bounds[1]),
+                      (dev_slots, slots)):
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+    starts, lens = kernels.densify_inputs(bounds, None, torch.device("cpu"))
+    np.testing.assert_array_equal(lens.numpy(), bounds[1])
+    np.testing.assert_array_equal(kernels.check_slots(slots.tolist(), 5, 10),
+                                  slots)
+
+
 def test_plain_versions_skip_entries_outside_row_and_stream():
     """A bad stream cannot write outside the row or read past the stream:
     indices outside [0, pw) and segments past the stream's end are
@@ -220,16 +265,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_leaves,n_parts,part_words", [
-    (1, 1, 131), (33, 4, 2045), (300, 8, 512)])
+@pytest.mark.parametrize("n_leaves,n_parts,part_words,max_len", [
+    (1, 1, 131, 150), (33, 4, 2045, 150), (300, 8, 512, 150),
+    # densify's tiles of 4,096 words: a PW that is a multiple of neither
+    # the tile nor 4; segments longer than a tile; all of a leaf's entries
+    # in one tile; a segment over three tiles (leaf 0's is empty)
+    (5, 3, 2045, 2000), (7, 2, 10007, 9000), (40, 1, 4000, 3000),
+    (2, 1, 13000, 12000)])
 def test_sparse_kernels_match_plain_on_card(cuda_device, n_leaves, n_parts,
-                                            part_words):
+                                            part_words, max_len):
     """K3, K4 and K5 against their plain versions: K = 1, ragged PWs (not a
-    multiple of 4 or 128), empty segments, and pool slots that include the
-    scratch row C."""
+    multiple of 4 or 128), empty segments, pool slots that include the
+    scratch row C, windows that start mid-partition and at an odd offset,
+    and K5's slots as host ints and as a tensor on the card."""
     rng = np.random.default_rng(n_leaves)
     idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
-                                       150, empty=[(0, 0)])
+                                       max_len, empty=[(0, 0)])
     pw = n_parts * part_words
     cpu = [_t(a) for a in (idx, words, starts, lens)]
     dev = [a.to(cuda_device) for a in cpu]
@@ -238,14 +289,20 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, n_leaves, n_parts,
         kernels.sparse_counts(dev[0], dev[1], filters.to(cuda_device),
                               *dev[2:]).cpu(),
         kernels.sparse_counts(cpu[0], cpu[1], filters, *cpu[2:]))
-    assert torch.equal(kernels.densify_rows(*dev, pw).cpu(),
-                       kernels.densify_rows(*cpu, pw))
-    pool = _t(rng.integers(0, 2**32, size=(n_leaves + 3, pw), dtype=np.uint32))
     # the scratch row C = n_leaves + 2 first, then distinct others
     slots = np.concatenate([[n_leaves + 2],
                             rng.permutation(n_leaves + 2)[: n_leaves - 1]])
-    pool_dev = pool.to(cuda_device)
-    kernels.densify_rows_into_pool(pool_dev, *dev, slots.tolist())
-    kernels.densify_rows_into_pool(pool, *cpu, slots.tolist())
-    torch.cuda.synchronize()
-    assert torch.equal(pool_dev.cpu(), pool)
+    for window, w_off in ((pw, 0), (pw // 3, part_words // 2),
+                          (pw // 2 + 1, pw // 3 + 1)):
+        assert torch.equal(kernels.densify_rows(*dev, window, w_off).cpu(),
+                           kernels.densify_rows(*cpu, window, w_off))
+        pool = _t(rng.integers(0, 2**32, size=(n_leaves + 3, window),
+                               dtype=np.uint32))
+        want = pool.clone()
+        kernels.densify_rows_into_pool(want, *cpu, slots.tolist(), w_off)
+        for card_slots in (slots.tolist(), torch.from_numpy(
+                slots.astype(np.int32)).to(cuda_device)):
+            pool_dev = pool.to(cuda_device)
+            kernels.densify_rows_into_pool(pool_dev, *dev, card_slots, w_off)
+            torch.cuda.synchronize()
+            assert torch.equal(pool_dev.cpu(), want)

@@ -19,7 +19,7 @@ import lapis_silo_torch
 from lapis_silo_tpu import testing as ref_testing
 from lapis_silo_tpu.ops import device_engine as ref_de
 from lapis_silo_tpu.query.engine import Query as RefQuery
-from lapis_silo_torch.ops import kernels
+from lapis_silo_torch.ops import device_engine, kernels
 from lapis_silo_torch.ops.device_engine import (
     DeviceEngine, build_state, state_from_reference,
 )
@@ -338,6 +338,68 @@ def test_sparse_caps_refuse_and_split_as_the_reference(corpus, ref_engine):
     assert engine.count_finish([None] * len(lowered), list(range(len(lowered))),
                                dispatches) == [_host_count(corpus, f)
                                                for f in filters]
+
+
+def test_stream_ascends_within_every_segment(corpus):
+    """The densify kernels' contract: the synthetic two-tier corpus's stream
+    strictly ascends within every (leaf, partition) segment, and the build's
+    check (_check_stream) refuses a stream where one segment does not."""
+    state = build_state(corpus, CPU, sparse_min_words=1)
+    idx = state.sparse_idx.numpy()
+    starts, lens = state.sparse_starts_pp, state.sparse_lengths_pp
+    n_long = 0
+    for start, n in zip(starts.reshape(-1), lens.reshape(-1)):
+        assert (np.diff(idx[start:start + n]) > 0).all()
+        n_long += n > 1
+    assert n_long > 100
+    device_engine._check_stream(idx, starts, lens)
+    start, n = next((s, n) for s, n in zip(starts.reshape(-1), lens.reshape(-1))
+                    if n > 2)
+    bad = idx.copy()
+    bad[start + 1], bad[start + 2] = bad[start + 2], bad[start + 1]
+    with pytest.raises(ValueError):
+        device_engine._check_stream(bad, starts, lens)
+    repeat = idx.copy()
+    repeat[start + 1] = repeat[start]
+    with pytest.raises(ValueError):
+        device_engine._check_stream(repeat, starts, lens)
+
+
+@pytest.mark.parametrize("route", ["pooled", "poolless"])
+def test_launch_refuses_offsets_past_int32(corpus, route, monkeypatch):
+    """Stream offsets past the int32 limit (lowered here) make a densify
+    launch raise ProgramTooLarge on either route instead of wrapping: no
+    densify runs, the pool is dropped, and the host query engine answers."""
+    engine = DeviceEngine(corpus, CPU, sparse_min_words=1)
+    monkeypatch.setattr(device_engine, "_INT32_MAX", engine._stream_end // 2)
+    queries = sample_count_queries(corpus, 24, seed=12)
+    lowered = [engine.lower(f)[0] for f in _filters(queries)]
+    kernels.reset_counts()
+    with pytest.raises(ProgramTooLarge):
+        if route == "pooled":
+            engine.count_programs(lowered)
+        else:
+            engine.count_dispatches(lowered, force_poolless=True)
+    assert kernels.DENSIFY_INTO_POOL.plain_launches == 0
+    assert kernels.DENSIFY_ROWS.plain_launches == 0
+    assert engine.leaf_pool is None and not engine._leaf_slot
+    # below the limit every launch still runs
+    monkeypatch.setattr(device_engine, "_INT32_MAX", engine._stream_end)
+    assert engine.count_programs(lowered) == [
+        _host_count(corpus, f) for f in _filters(queries)]
+
+
+def test_build_refuses_a_stream_chunk_past_int32(corpus, monkeypatch):
+    """The sparse Mutations kernel takes its chunk's offsets as int32: an
+    engine whose stream chunk would pass the limit (lowered here) refuses
+    to build rather than wrap; on 3 shards each chunk is a third."""
+    n_entries = build_state(corpus, CPU, sparse_min_words=1).sparse_idx.shape[0]
+    monkeypatch.setattr(device_engine, "_INT32_MAX", n_entries // 2)
+    with pytest.raises(ValueError):
+        DeviceEngine(corpus, CPU, sparse_min_words=1)
+    engine = DeviceEngine(corpus, CPU, sparse_min_words=1, devices=[CPU] * 3)
+    assert max(idx.shape[0] for idx, *_ in engine._sparse_chunks) <= (
+        n_entries // 2)
 
 
 @pytest.fixture
