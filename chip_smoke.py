@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's count and Mutations paths once on one NVIDIA GPU.
+"""Drive the PyTorch port once on one NVIDIA GPU: counts, group-by, Details
+and Mutations through the engine, then a snapshot served over HTTP.
 
     python3 chip_smoke.py
 
@@ -11,46 +12,65 @@ Phases, one line each or more (the last line is the JSON verdict):
      card, bit-exact (tolerance 0: every value is an integer), on random
      inputs (ragged word counts, empty segments, K = 1 and K at the caps,
      pool slots including the scratch row, densify windows of word shards,
-     the VM in one segment and in random segments, also over 4 word shards)
-     and at the main paths' shapes (the 512-query batch in its per-query
-     segments, and as one segment), with both times there (for the VM also
-     its wrapper's wall time per call, host time included) and each kernel's
-     bound, the larger of its bytes over the HBM rate and its operations
-     over the peak rate (the two-tier shapes are compared in phase 7's
-     set-up, the sharded ones in phase 8a's, the windowed and chunked ones
-     in 8b's; there the densify kernels also take their wall time per call
-     through the engine's route, a pool-update chunk's included, beside
-     zero_() of a block of the same shape);
+     the VM in one segment and in random segments, also over 4 word shards,
+     the group-count kernel K9 at every bucket edge with padding and
+     negative codes, all bits set and clear, and shard windows) and at the
+     main paths' shapes (the 512-query batch in its per-query segments, and
+     as one segment), with both times there (for the VM also its wrapper's
+     wall time per call, host time included) and each kernel's bound, the
+     larger of its bytes over the HBM rate and its operations over the peak
+     rate (K9 and the compact extraction at phase 5's shapes in its set-up,
+     the two-tier shapes in phase 7's, the sharded ones in phase 8a's, the
+     windowed and chunked ones in 8b's; there the densify kernels also take
+     their wall time per call through the engine's route, a pool-update
+     chunk's included, beside zero_() of a block of the same shape);
   4. the dense main path at the bench default, 65,536 sequences x 29,903
      positions in 1 partition: (a) 64 count queries through
      db.execute_query, one at a time and then from a thread pool so the
      micro-batcher coalesces them, (b) 512 lowered queries through one wide
      count_programs launch, (c) two selective Mutations queries; all equal
      to the host oracle;
-  5. the same checks at 1,048,576 sequences x 29,903 positions in 4
-     partitions (a dense bank of about 11.8 GB on the card);
+  5. at 1,048,576 sequences x 29,903 positions in 4 partitions (a dense bank
+     of about 11.8 GB on the card): set-up compares the compact extraction
+     (evaluate_compact) with evaluate() below and above its cap and times
+     it, then times both as whole calls on synthetic words from 131,072 to
+     4,194,304 flat words (COMPACT_MIN_WORDS comes from this), and K9 with its plain version for every group-by column list; then
+     the 64 counts, 8 group-by queries (by date, country, date and country,
+     age), two Details through evaluate_compact (COMPACT_MIN_WORDS set to 0
+     on the engine: the corpus has fewer flat words; one filter under the
+     cap, one over) and two Mutations queries, all equal to the host oracle;
   8a. phase 5's corpus and oracle answers on the word-sharded engine: the
      single-device engine freed, install(db, ..., devices=[4 shards]) places
      the shards round-robin on the visible cards (all four on one card when
      there is one; the phase says which), four [89,709, 8,192] banks; the 64
-     counts, a 512-query count_programs call and one Mutations query, all
-     equal to the host oracle; vm_run_sharded and mutation_counts_sharded
-     against their plain versions at these shapes, with both times;
+     counts, a 512-query count_programs call, the group-by and Details
+     queries and one Mutations query, all equal to the host oracle;
+     vm_run_sharded and mutation_counts_sharded against their plain versions
+     at these shapes, with both times, and the compaction and K9 per shard;
+  9. the slice's path: phase 5's corpus saved with the port's save_database
+     under build/, loaded by the port's DatabaseDirectoryWatcher (which
+     installs the port's engine on the visible cards and warms it up) and
+     served in this process on port 0 by make_server, the Python server and,
+     where libsilo_http.so builds (into build/native/), the native server:
+     64 counts, the group-by queries, one Details and two Mutations over
+     HTTP, every body equal to the host oracle and /info to db.info(); then
+     the native fast path answers the counts with no Python routing; the
+     save, load and warm-up seconds and p50 per action;
   7. the two-tier deployment, 2,097,152 sequences x 29,903 positions in 8
      partitions, whose all-dense bank (about 23.5 GB) exceeds the 12 GiB
      budget, so the engine builds the CSR sparse tier and the hot-leaf pool:
      (a) the 64 counts, cold and then hot, (b) 512 lowered queries through
      count_programs (pooled) and through count_dispatches with
-     force_poolless (densified blocks), (c) two Mutations queries; all equal
-     to the host oracle;
+     force_poolless (densified blocks), (c) two Mutations queries, the
+     group-by and Details queries; all equal to the host oracle;
   8b. phase 7's corpus on 4 word shards of 16,384 words: the window-local
      densify_rows and densify_rows_into_pool and the chunked sparse_counts
      against their plain versions at these shapes, with both times; then
      cold and hot counts, the pooled and the poolless wide batch, two
-     Mutations queries, all equal to the host oracle, through the
-     window-local pool updates and densified blocks and the entry-split
-     sparse Mutations;
-  6. assertions: every kernel launched during phases 4, 5, 7 and 8 (but
+     Mutations queries, the group-by and Details queries, all equal to the
+     host oracle, through the window-local pool updates and densified blocks
+     and the entry-split sparse Mutations;
+  6. assertions: every kernel launched during phases 4, 5, 7, 8 and 9 (but
      popcount_rows_and_filter, which no engine path calls) and no plain
      version ran there, no module of jax* or lapis_silo_tpu* was loaded,
      the device path stayed on.
@@ -69,10 +89,14 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import gc
+import http.client as http_client
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -100,6 +124,10 @@ REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
                 ("densify_rows_into_pool", 1252), ("vm_run_sharded", 741),
                 ("mutation_counts_sharded", 777),
                 ("popcount_rows_and_filter", 104))}
+# K9's reference is an XLA reduction, no Pallas kernel
+REPLACES["group_counts"] = "lapis_silo_tpu/ops/reductions.py:23"
+# the dashboard group-by queries of phases 5, 7, 8 and 9
+GROUP_BYS = (["date"], ["country"], ["date", "country"], ["age"])
 
 
 def log(phase: str, message: str) -> None:
@@ -249,6 +277,190 @@ def mutations_queries(db) -> list[str]:
     return [json.dumps({"action": {"type": "Mutations", "minProportion": p},
                         "filterExpression": f})
             for f, p in ((leaf, 0.05), (either, 0.02))]
+
+
+def groupby_queries(db) -> list[str]:
+    """The dashboard group-by queries (GROUP_BYS), over every sequence and
+    over one stored mutation."""
+    leaf = json.loads(mutations_queries(db)[0])["filterExpression"]
+    return [json.dumps({"action": {"type": "Aggregated", "groupByFields": cols},
+                        "filterExpression": f})
+            for cols in GROUP_BYS for f in ({"type": "True"}, leaf)]
+
+
+def details_queries(db) -> list[str]:
+    """Two Details queries: one stored mutation (a few hundred sequences,
+    under COMPACT_CAP_WORDS non-zero words) and a narrow age band (6% of
+    the sequences, spread over most words: over the cap, with a host action
+    that stays short)."""
+    leaf = json.loads(mutations_queries(db)[0])["filterExpression"]
+    wide = {"type": "IntBetween", "column": "age", "from": 40, "to": 45}
+    return [json.dumps({"action": {"type": "Details",
+                                   "fields": ["key", "age", "date", "country"],
+                                   "orderByFields": ["age"], "limit": 20},
+                        "filterExpression": f}) for f in (leaf, wide)]
+
+
+def run_groupby(db, queries: list[str], want: list[dict], phase: str) -> None:
+    latencies = []
+    for query, expected in zip(queries, want):
+        t0 = time.perf_counter()
+        got = db.execute_query(query)
+        latencies.append(time.perf_counter() - t0)
+        assert got == expected, query
+    log(phase, f"{len(queries)} group-by queries (by "
+        f"{', '.join('+'.join(c) for c in GROUP_BYS)}; every sequence and one "
+        f"mutation) equal the host oracle, "
+        f"{[len(w['queryResult']) for w in want]} rows; p50 "
+        f"{statistics.median(latencies) * 1e3:.3f} ms, max "
+        f"{max(latencies) * 1e3:.3f} ms")
+
+
+def run_details(db, engine, queries: list[str], want: list[dict],
+                phase: str) -> None:
+    """Details through evaluate_compact: the corpus has fewer flat words
+    than COMPACT_MIN_WORDS, so the engine instance's limit is set to 0 (as
+    tests/test_device_engine.py does for the JAX engine) and the phase says
+    so; one filter below the cap, one above it."""
+    from lapis_silo_torch.query.engine import Query
+
+    engine.COMPACT_MIN_WORDS = 0
+    for query, expected in zip(queries, want):
+        flt = Query(query).filter
+        nonzero = sum(int(np.count_nonzero(w)) for w in engine.evaluate(flt))
+        t0 = time.perf_counter()
+        got = db.execute_query(query)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert got == expected, query
+        log(phase, f"Details through evaluate_compact (COMPACT_MIN_WORDS set "
+            f"to 0 on this engine: {engine.n_flat_words} flat words) equals "
+            f"the host oracle; {nonzero} non-zero words, "
+            f"{'under' if nonzero <= engine.COMPACT_CAP_WORDS else 'over'} "
+            f"the cap of {engine.COMPACT_CAP_WORDS}; {ms:.2f} ms")
+
+
+def compact_and_groupby_kernels(engine, kernels, torch, db, err: dict,
+                                timings: dict, label: str) -> dict:
+    """On the engine's shapes: evaluate_compact against evaluate() on the
+    card below and above the cap; the compaction's time on the card (torch
+    ops after the VM launch, per shard) and per call; K9 against its plain
+    version for every group-by column list of GROUP_BYS over every sequence
+    (the shards' words and codes), with both times for `date` and the work
+    for its bound. Returns the compaction's numbers."""
+    from lapis_silo_torch.ops import reductions
+    from lapis_silo_torch.query.engine import Query
+
+    engine.COMPACT_MIN_WORDS = 0
+    cap = engine.COMPACT_CAP_WORDS
+    below, above = (Query(q).filter for q in details_queries(db))
+    for flt in (below, above):
+        for got, want in zip(engine.evaluate_compact(flt),
+                             engine.evaluate(flt)):
+            assert np.array_equal(got, want), label
+    words = engine.evaluate_device(below)
+    offsets = engine.shards.offsets
+    compact_ms = cuda_ms(lambda: [reductions.compact_nonzero(w, cap, o)
+                                  for w, o in zip(words, offsets)], reps=20)
+    compact_wall = wall_ms(lambda: engine.evaluate_compact(below), reps=10)
+    full_wall = wall_ms(lambda: engine.evaluate(below), reps=10)
+    overflow_wall = wall_ms(lambda: engine.evaluate_compact(above), reps=5)
+    sweep = compact_sweep(engine, torch) if label == "5" else None
+    fulls = engine.fulls  # the words of the True filter
+    n_set = sum(int(reductions.popcount_words(f)) for f in fulls)
+    for columns in GROUP_BYS:
+        codes_on, n_groups, _ = engine.group_codes_for(columns)
+        n_bins = next(b for b in engine._GROUP_BUCKETS if b >= n_groups) + 1
+        args = [(f, c, o, engine.n_words, engine.n_partitions, n_bins)
+                for f, c, o in zip(fulls, codes_on, offsets)]
+        for a in args:
+            err["group_counts"] = max(err["group_counts"], max_abs_err(
+                kernels.group_counts(*a), kernels.group_counts_plain(*a)))
+        if columns == ["date"]:
+            n_words = engine.n_flat_words
+            date = (
+                cuda_ms(lambda: [kernels.group_counts(*a) for a in args],
+                        reps=20),
+                cuda_ms(lambda: [kernels.group_counts_plain(*a) for a in args],
+                        reps=2, warmup=1),
+                # the words, the code of each set bit, the partials
+                4 * n_words + 4 * n_set
+                + 4 * engine.n_partitions * n_bins * len(args),
+                n_words + n_set, len(engine.shards.distinct))
+            date_bins = n_bins
+    # the kernels line reports the first (one-card, one-shard) reading
+    timings.setdefault("group_counts", date)
+    log(f"{label} compact", f"evaluate_compact equals evaluate() below and "
+        f"above the cap ({cap}) on {len(engine.shards)} shard(s) of "
+        f"{engine.shards.local_words} words; compaction {compact_ms:.4f} ms "
+        f"on the card for {engine.n_flat_words} words; per call "
+        f"{compact_wall:.4f} ms against "
+        f"{full_wall:.4f} ms for evaluate() (overflow {overflow_wall:.4f} ms)")
+    log(f"{label} group_counts", f"K9 bit-exact for {len(GROUP_BYS)} column "
+        f"lists over {n_set} set bits on {len(args)} shard(s); by date "
+        f"(G {date_bins}): kernel {date[0]:.4f} ms, plain {date[1]:.2f} ms, "
+        f"bound {bound(*date[2:])[0]:.4f} ms")
+    return {"ms": compact_ms, "wall": compact_wall,
+            "evaluate_wall": full_wall, "overflow_wall": overflow_wall,
+            "words": engine.n_flat_words, "sweep": sweep}
+
+
+# flat word counts of the compaction sweep: the engine's COMPACT_MIN_WORDS,
+# the 10,000,000 x 32-partition corpus' flat axis, and two larger corpora
+SWEEP_WORDS = (131072, 312512, 1048576, 4194304)
+
+
+def compact_sweep(engine, torch) -> dict:
+    """evaluate()'s bitset copy against evaluate_compact's extraction as
+    whole calls (wall time per call, the host's rebuild included) on
+    synthetic flat words on the card at SWEEP_WORDS, 400 non-zero words
+    (a selective filter) and COMPACT_CAP_WORDS of them (the most the
+    extraction takes); the VM launch before them is the same for both and
+    left out. Each extraction is checked against the copy. Returns the
+    times and the swept word counts at which the extraction is faster at
+    both fills."""
+    from lapis_silo_torch.ops import reductions
+    from lapis_silo_torch.ops.device_engine import compact_to_host
+    from lapis_silo_torch.ops.words import to_host
+    from lapis_silo_torch.parallel.shards import gather_words
+
+    device, cap = engine.device, engine.COMPACT_CAP_WORDS
+    rng = np.random.default_rng(5)
+    rows = []
+    for n in SWEEP_WORDS:
+        for n_hot in (400, cap):
+            host = np.zeros(n, dtype=np.uint32)
+            host[rng.choice(n, size=n_hot, replace=False)] = rng.integers(
+                1, 1 << 32, size=n_hot, dtype=np.uint64).astype(np.uint32)
+            words = torch.from_numpy(host.view(np.int32)).to(device)
+            copy = lambda: to_host(gather_words([words], "cpu"))  # noqa: E731
+            extract = lambda: compact_to_host(  # noqa: E731
+                [words], [0], cap, device, n)
+            assert np.array_equal(extract(), host) and np.array_equal(
+                copy(), host)
+            # copy, extract, extract, copy, twice: the median of each four
+            times = {copy: [], extract: []}
+            for fn in (copy, extract, extract, copy) * 2:
+                times[fn].append(wall_ms(fn, reps=20, warmup=3))
+            rows.append({
+                "words": n, "nonzero": n_hot,
+                "evaluate_ms": statistics.median(times[copy]),
+                "compact_ms": statistics.median(times[extract]),
+                "compact_card_ms": cuda_ms(
+                    lambda: reductions.compact_nonzero(words, cap, 0),
+                    reps=20)})
+            del words
+    wins = [n for n in SWEEP_WORDS
+            if all(r["compact_ms"] < r["evaluate_ms"] for r in rows
+                   if r["words"] == n)]
+    log("5 compact sweep", "whole-call ms (median of 4 alternating "
+        "readings), bitset copy (evaluate) against extraction "
+        "(evaluate_compact), per flat words/non-zero words: "
+        + "; ".join(f"{r['words']}/{r['nonzero']}: {r['evaluate_ms']:.4f} vs "
+                    f"{r['compact_ms']:.4f} (card {r['compact_card_ms']:.4f})"
+                    for r in rows)
+        + f"; extraction faster at both fills at {wins} words "
+        f"(COMPACT_MIN_WORDS {type(engine).COMPACT_MIN_WORDS})")
+    return {"rows": rows, "extraction_wins": wins}
 
 
 def run_counts(db, queries: list[str], want: list[dict], phase: str) -> None:
@@ -415,6 +627,27 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                                              slots, window)
         err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
                                             max_abs_err(pool, want))
+    # K9 at every bucket edge (shared-memory bins up to 16,385, device
+    # memory at 2^20 + 1), with padding and negative codes, words all set
+    # and all clear, runs of one code, word counts that are no multiple of a
+    # CTA's block, and the windows of 3 shards across partition edges
+    for n_groups in (65, 1025, 16385, (1 << 20) + 1):
+        for n_parts, part_words in ((1, 1), (3, 1111), (4, 8192)):
+            pw = n_parts * part_words
+            words = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
+            words[: pw // 7] = 0xFFFFFFFF
+            words[pw // 7: pw // 5] = 0
+            codes = rng.integers(-1, n_groups + 1, size=32 * pw).astype(np.int32)
+            codes[: 32 * (pw // 9)] = rng.integers(0, 3)
+            for n_shards in (1, 3):
+                local = pw // n_shards
+                for d in range(n_shards):
+                    args = (dev(words[d * local:(d + 1) * local]),
+                            dev(codes[32 * d * local:32 * (d + 1) * local]),
+                            d * local, part_words, n_parts, n_groups)
+                    err["group_counts"] = max(err["group_counts"], max_abs_err(
+                        kernels.group_counts(*args),
+                        kernels.group_counts_plain(*args)))
     torch.cuda.synchronize()
     return err
 
@@ -582,13 +815,17 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
     counts64 = sample_count_queries(db, 64, seed=1)
     wide = sample_count_queries(db, 512, seed=7)
     muts = mutations_queries(db)
+    groupby, details = groupby_queries(db), details_queries(db)
     t0 = time.perf_counter()
     want64, want_wide, want_muts = (oracle(db, counts64), oracle(db, wide),
                                     oracle(db, muts))
+    want_groupby, want_details = oracle(db, groupby), oracle(db, details)
     log("7 oracle", f"host oracle answered in {time.perf_counter() - t0:.1f} s")
     answers = dict(db=db, counts64=counts64, want64=want64, wide=wide,
                    want_wide=[w["queryResult"][0]["count"] for w in want_wide],
-                   muts=muts, want_muts=want_muts)
+                   muts=muts, want_muts=want_muts, groupby=groupby,
+                   want_groupby=want_groupby, details=details,
+                   want_details=want_details)
     torch.cuda.reset_peak_memory_stats()  # the comparisons' temporaries
     two_tier_path(main, kernels, engine, answers, ("7a", "7b", "7c"))
     log("7 done", f"peak device memory over 7a-7c "
@@ -604,7 +841,7 @@ def two_tier_path(main: MainPath, kernels, engine, answers: dict,
     """The two-tier main path against the host oracle's answers: (a) the 64
     counts cold and then hot, (b) the 512 queries through count_programs
     (pooled) and through count_dispatches with force_poolless (densified
-    blocks), (c) the Mutations queries."""
+    blocks), (c) the Mutations, group-by and Details queries."""
     from lapis_silo_torch.query.engine import Query
 
     db, want_wide = answers["db"], answers["want_wide"]
@@ -646,7 +883,12 @@ def two_tier_path(main: MainPath, kernels, engine, answers: dict,
             f"{n_blocks} densified blocks")
         run_mutations(db, answers["muts"], answers["want_muts"],
                       f"{labels[2]} mutations")
+        run_groupby(db, answers["groupby"], answers["want_groupby"],
+                    f"{labels[2]} group-by")
+        run_details(db, engine, answers["details"], answers["want_details"],
+                    f"{labels[2]} details")
         assert db._engine._use_device
+        assert kernels.GROUP_COUNTS.launches > 0
 
 
 def detach(db, torch) -> None:
@@ -750,30 +992,36 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
         f"{timings['mutation_counts_sharded'][1]:.2f} ms")
 
 
-def phase8a(main: MainPath, kernels, torch, db, counts64, want64, muts,
-            want_muts, err: dict, timings: dict) -> None:
+def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
+            timings: dict) -> None:
     """Phase 5's corpus and answers on the sharded engine (the single-device
-    engine already dropped), with the sharded kernels compared first."""
+    engine already dropped), with the sharded kernels, the compaction and
+    K9 compared first."""
     from lapis_silo_torch.query.engine import Query
     from lapis_silo_torch.testing import sample_count_queries
 
     wide = sample_count_queries(db, 512, seed=7)
     want_wide = [w["queryResult"][0]["count"] for w in oracle(db, wide)]
+    muts, want_muts = answers["Mutations"]
     engine = install_sharded(db, torch, "8a")
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     sharded_kernels(engine, kernels, lowered, muts[0], err, timings)
+    compact_and_groupby_kernels(engine, kernels, torch, db, err, timings, "8a")
     with main.phase():
-        run_counts(db, counts64, want64, "8a counts")
+        run_counts(db, *answers["counts"], "8a counts")
+        run_groupby(db, *answers["group-by"], "8a group-by")
+        run_details(db, engine, *answers["Details"], "8a details")
         t0 = time.perf_counter()
         assert engine.count_programs(lowered) == want_wide
         wide_s = time.perf_counter() - t0
         log("8a wide", f"{len(wide)} queries in one count_programs call equal "
             f"the host oracle; {wide_s * 1e3:.2f} ms ({len(wide) / wide_s:.0f} "
             f"queries/s, lowering excluded)")
-        run_mutations(db, muts, want_muts, "8a mutations")
+        run_mutations(db, muts[:1], want_muts[:1], "8a mutations")
         assert db._engine._use_device
         assert kernels.VM_RUN_SHARDED.launches > 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches > 0
+        assert kernels.GROUP_COUNTS.launches > 0
     del engine
     detach(db, torch)
 
@@ -797,6 +1045,164 @@ def phase8b(main: MainPath, kernels, torch, answers: dict,
         f"{ {k.name: k.launches for k in kernels.KERNELS} }")
     del engine
     detach(answers["db"], torch)
+
+
+def http(port: int, method: str, path: str, body: str | None = None):
+    """(status, data-version, parsed JSON body) of one request."""
+    conn = http_client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"} if body
+                     else {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("data-version"), json.loads(
+            resp.read())
+    finally:
+        conn.close()
+
+
+def serve_checks(port: int, served, db, answers: dict, label: str) -> dict:
+    """Every query of `answers` ({action: (queries, oracle answers)}) over
+    HTTP, each body equal to the host oracle's and each data-version the
+    served snapshot's; GET /info equal to db.info(). Returns the p50 ms per
+    action."""
+    version = served.data_version.value
+    p50 = {}
+    for action, (queries, want) in answers.items():
+        latencies = []
+        for query, expected in zip(queries, want):
+            t0 = time.perf_counter()
+            status, got_version, got = http(port, "POST", "/query", query)
+            latencies.append(time.perf_counter() - t0)
+            assert (status, got_version) == (200, version), (status, query)
+            assert got == expected, query
+        p50[action] = statistics.median(latencies) * 1e3
+    status, got_version, info = http(port, "GET", "/info")
+    assert (status, got_version, info) == (200, version, db.info())
+    log(label, f"over HTTP every body equals the host oracle "
+        f"({', '.join(f'{len(q)} {a}' for a, (q, _) in answers.items())}) "
+        f"and /info equals db.info(); p50 per action "
+        f"{ {a: round(ms, 3) for a, ms in p50.items()} } ms")
+    return p50
+
+
+def phase9(main: MainPath, kernels, torch, db, answers: dict) -> dict:
+    """The slice's path: phase 5's corpus saved as a snapshot by the port,
+    loaded by the port's watcher (which installs the port's engine on the
+    visible cards and warms it up) and served in this process over HTTP on
+    port 0, by the Python server and, where libsilo_http.so builds,
+    by the native server and its count fast path. Returns the set-up
+    seconds and the p50 per action."""
+    import lapis_silo_torch
+    from lapis_silo_torch.server import native_http
+    from lapis_silo_torch.server.http_server import DatabaseMutex, make_server
+    from lapis_silo_torch.server.watcher import DatabaseDirectoryWatcher
+    from lapis_silo_torch.storage.snapshot import save_database
+
+    data_dir = ROOT / "build" / "smoke_data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = Path(save_database(db, str(data_dir)))
+    t_save = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in path.iterdir())
+    mutex = DatabaseMutex()
+    watcher = DatabaseDirectoryWatcher(str(data_dir), mutex, poll_seconds=3600)
+    warm = {}
+
+    def timed_warmup(database):
+        t = time.perf_counter()
+        DatabaseDirectoryWatcher._warmup(database)
+        warm["s"] = time.perf_counter() - t
+
+    watcher._warmup = timed_warmup
+    out = {"save_s": t_save, "bytes": size}
+    with main.phase():
+        t0 = time.perf_counter()
+        watcher.check_once()
+        torch.cuda.synchronize()
+        out["warmup_s"] = warm["s"]
+        out["load_s"] = time.perf_counter() - t0 - warm["s"]
+        served = mutex.get_database()
+        engine = served.device_engine
+        assert isinstance(engine, lapis_silo_torch.DeviceEngine), engine
+        assert engine.device.type == torch.device(DEVICE).type
+        assert served._engine._use_device
+        engine.COMPACT_MIN_WORDS = 0
+        log("9 setup", f"snapshot of {db.info()['sequenceCount']} sequences "
+            f"saved by the port in {t_save:.1f} s ({size / 1e9:.3f} GB on "
+            f"disk); the watcher loaded it and installed the port's engine on "
+            f"{[str(d) for d in engine.shards.devices]} in "
+            f"{out['load_s']:.1f} s and warmed it up in {out['warmup_s']:.1f} "
+            f"s; COMPACT_MIN_WORDS set to 0 on the served engine "
+            f"({engine.n_flat_words} flat words) so Details goes through "
+            f"evaluate_compact")
+        impls = ["python"] + (["native"] if native_http.native_http_available()
+                              else [])
+        if len(impls) == 1:
+            log("9 native", "libsilo_http.so did not build here: the "
+                "native server is not checked")
+        for impl in impls:
+            os.environ["SILO_HTTP_IMPL"] = impl
+            server = make_server(mutex, port=0)
+            assert isinstance(server, native_http.NativeHTTPServer) == (
+                impl == "native")
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            port = server.server_address[1]
+            try:
+                out[impl] = serve_checks(port, served, db, answers,
+                                         f"9 {impl}")
+                if impl == "native":
+                    out["fast"] = fast_path_checks(native_http, port, served,
+                                                   *answers["counts"])
+            finally:
+                server.shutdown()
+                server.server_close()
+        for k in (kernels.VM_RUN, kernels.MUTATION_COUNTS,
+                  kernels.GROUP_COUNTS):
+            assert k.launches > 0, f"{k.name} did not launch in phase 9"
+        log("9 done", f"launches { {k.name: k.launches for k in kernels.KERNELS} }")
+    os.environ.pop("SILO_HTTP_IMPL", None)
+    del engine
+    detach(served, torch)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
+def fast_path_checks(native_http, port: int, served, queries: list[str],
+                     want: list[dict]) -> float:
+    """The counts again until the native fast path answers every one of
+    them with no call of the Python router: the same bodies and
+    data-version. Returns the p50 ms of the fast path's answers."""
+    version = served.data_version.value
+    routed = [0]
+    route_request = native_http.route_request
+
+    def counted(*args):
+        routed[0] += 1
+        return route_request(*args)
+
+    native_http.route_request = counted
+    try:
+        deadline = time.time() + 60
+        while True:
+            before = routed[0]
+            latencies = []
+            for query, expected in zip(queries, want):
+                t0 = time.perf_counter()
+                answer = http(port, "POST", "/query", query)
+                latencies.append(time.perf_counter() - t0)
+                assert answer == (200, version, expected), query
+            if routed[0] == before or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        assert routed[0] == before, "the fast path never answered every count"
+    finally:
+        native_http.route_request = route_request
+    p50 = statistics.median(latencies) * 1e3
+    log("9 fast path", f"{len(queries)} counts answered by the native fast "
+        f"path (no Python routing), equal to the host oracle; p50 "
+        f"{p50:.3f} ms")
+    return p50
 
 
 def main() -> int:
@@ -946,21 +1352,32 @@ def main() -> int:
         f"({big_engine.banks[0].numel() * 4 / 1e9:.2f} GB) resident in "
         f"{t_resident:.1f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    big_counts = sample_count_queries(big, 64, seed=1)
-    big_muts = mutations_queries(big)[:1]
     t0 = time.perf_counter()
-    big_want, big_want_muts = oracle(big, big_counts), oracle(big, big_muts)
+    big_answers = {action: (queries, oracle(big, queries)) for action, queries
+                   in (("counts", sample_count_queries(big, 64, seed=1)),
+                       ("group-by", groupby_queries(big)),
+                       ("Details", details_queries(big)),
+                       ("Mutations", mutations_queries(big)))}
     log("5 oracle", f"host oracle answered in {time.perf_counter() - t0:.1f} s")
+    compaction = compact_and_groupby_kernels(big_engine, kernels, torch, big,
+                                             err, timings, "5")
+    assert all(e == 0 for e in err.values()), err
     with main_path.phase():
-        run_counts(big, big_counts, big_want, "5a counts")
-        run_mutations(big, big_muts, big_want_muts, "5c mutations")
+        run_counts(big, *big_answers["counts"], "5a counts")
+        run_groupby(big, *big_answers["group-by"], "5b group-by")
+        run_details(big, big_engine, *big_answers["Details"], "5b details")
+        run_mutations(big, *big_answers["Mutations"], "5c mutations")
         assert big._engine._use_device
+        assert kernels.GROUP_COUNTS.launches > 0
     del big_engine
     detach(big, torch)
 
     # 8a: the same corpus on the word-sharded engine
-    phase8a(main_path, kernels, torch, big, big_counts, big_want, big_muts,
-            big_want_muts, err, timings)
+    phase8a(main_path, kernels, torch, big, big_answers, err, timings)
+    # 9: the same corpus as a snapshot, served over HTTP
+    served = phase9(main_path, kernels, torch, big,
+                    {**big_answers, "Details": (big_answers["Details"][0][:1],
+                                                big_answers["Details"][1][:1])})
     del big
     gc.collect()
 
@@ -977,6 +1394,8 @@ def main() -> int:
     log("6 checks", f"main-path launches {main_path.launches}, plain-version "
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
+    log("6 summary", "compaction (torch ops, no kernel) "
+        + json.dumps(compaction) + "; phase 9 " + json.dumps(served))
     assert all(n for name, n in main_path.launches.items()
                if name not in OFF_PATH), main_path.launches
     assert not any(main_path.plain.values()), main_path.plain

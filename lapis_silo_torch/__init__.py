@@ -7,7 +7,15 @@ and the synthetic corpora of ``testing.py``); the JAX package,
 ``lapis_silo_tpu``, stays the reference the port is tested against, and no
 module here imports it or ``jax``. ``ops/`` holds the ISA, the lowering, the
 two-tier device engine and the kernels (``csrc/``), and ``query/engine.py``
-the query engine that drives them.
+the query engine that drives them. ``storage/snapshot.py`` reads and writes
+the JAX package's snapshot format, and ``server/`` serves snapshots over
+HTTP; the entry point for users is the CLI's ``--api`` mode, which serves the
+newest snapshot of a directory on every visible CUDA card (or on the device
+that ``SILO_TORCH_DEVICE`` names):
+
+    python -m lapis_silo_torch.cli --api --dataDirectory ./output
+
+As a library:
 
     from lapis_silo_torch.testing import synthetic_database
     db = synthetic_database(65536, 29903)            # or a database of yours

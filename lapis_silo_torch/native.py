@@ -1,14 +1,18 @@
 """ctypes loader for the native host kernels (native/silo_native.cpp at the
 root of the repository, the same sources the JAX package builds).
 
-Auto-builds the shared library on first use if a C++ toolchain is present;
-callers fall back to the numpy implementations when unavailable, so the
+Builds each shared library on first use if a C++ toolchain is present, with
+native/Makefile, into build/native/ of the checkout: the port's own copies,
+so that its builds never race the JAX package's writes into native/, and
+under a file lock, so that processes of the port build one at a time.
+Callers fall back to the numpy implementations when unavailable, so the
 package works (slower) without a compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -16,22 +20,46 @@ import threading
 
 logger = logging.getLogger(__name__)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                           "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libsilo_native.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_DIR = os.path.join(_ROOT, "native")
+_BUILD_DIR = os.path.join(_ROOT, "build", "native")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "all"], check=True,
-                       capture_output=True, timeout=120)
-        return True
-    except Exception as ex:  # noqa: BLE001
-        logger.info("native build unavailable (%s); using numpy fallbacks", ex)
-        return False
+def _build_and_load(so_name: str):
+    """`so_name` built from native/ into build/native/ (make is a no-op when
+    it is fresh) and loaded; None when it cannot be built."""
+    path = os.path.join(_BUILD_DIR, so_name)
+    if os.path.isdir(_NATIVE_DIR):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                subprocess.run(
+                    ["make", "-C", _BUILD_DIR, "-f",
+                     os.path.join(_NATIVE_DIR, "Makefile"),
+                     f"--eval=vpath %.cpp {_NATIVE_DIR}", so_name],
+                    check=True, capture_output=True, timeout=120)
+            except Exception as ex:  # noqa: BLE001
+                logger.info("native build unavailable (%s); using numpy "
+                            "fallbacks", ex)
+            if os.path.exists(path):
+                return ctypes.CDLL(path)
+    return None
+
+
+_named_libs: dict = {}
+
+
+def get_named_lib(so_name: str):
+    """Load (building if needed) another shared library of native/, e.g.
+    libsilo_http.so. Returns None when unavailable."""
+    with _lock:
+        if so_name not in _named_libs:
+            _named_libs[so_name] = _build_and_load(so_name)
+        return _named_libs[so_name]
 
 
 def get_lib():
@@ -40,11 +68,9 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.path.isdir(_NATIVE_DIR):
-            _build()  # make is a no-op when the .so is fresh
-        if not os.path.exists(_SO_PATH):
+        lib = _build_and_load("libsilo_native.so")
+        if lib is None:
             return None
-        lib = ctypes.CDLL(_SO_PATH)
         try:
             lib.silo_pack_batch_compact.restype = None
             lib.silo_pack_batch_compact.argtypes = [

@@ -67,7 +67,7 @@ import torch
 from ..parallel.shards import (
     ShardLayout, gather_words, reduce_sum, resolve, split_words,
 )
-from . import bitset, kernels, lowering
+from . import bitset, kernels, lowering, reductions
 from .reductions import clip_bounds, entry_chunks, popcount_words
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
@@ -366,6 +366,26 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
     return state
 
 
+def compact_to_host(words: list[torch.Tensor], offsets: list[int], cap: int,
+                    device: torch.device, n_flat_words: int
+                    ) -> np.ndarray | None:
+    """Host flat words [n_flat_words] from word shards (shard d's first word
+    is global word offsets[d]) through their non-zero (index, word) pairs:
+    reductions.compact_nonzero per shard, queued behind the work that wrote
+    the words, then one copy of every shard's count and pairs from
+    `device`. None when more than `cap` words are non-zero."""
+    blocks = [reductions.compact_nonzero(part, cap, offset)
+              for part, offset in zip(words, offsets)]
+    packed = to_host(torch.stack([block.to(device) for block in blocks]))
+    counts = packed[:, 0].astype(np.int64)
+    if counts.sum() > cap:
+        return None
+    host = np.zeros(n_flat_words, dtype=np.uint32)
+    for shard_block, n in zip(packed, counts):
+        host[shard_block[1:1 + n]] = shard_block[1 + cap:1 + cap + n]
+    return host
+
+
 class DeviceEngine:
     """The port's device engine over one device, or with `devices` (two or
     more, repeats allowed) sharded over them with devices[0] the primary:
@@ -504,6 +524,10 @@ class DeviceEngine:
         self.pool_misses = 0
         self.pool_update_dispatches = 0
 
+        # group codes of the GROUP_CODES_CACHED column lists used last
+        # (group_codes_for; None: unsupported), least recent first
+        self._group_codes: OrderedDict[tuple, tuple | None] = OrderedDict()
+        self._group_codes_lock = threading.Lock()
         self._sparse_zero = [
             torch.zeros((1, self.shards.local_words), dtype=torch.int32,
                         device=shard) for shard in self.shards.devices]
@@ -927,27 +951,180 @@ class DeviceEngine:
         words, _counts = self._run(self._prepare_program(program))
         return words
 
-    def evaluate(self, filter_expr) -> list[np.ndarray]:
-        """Per-partition packed bitsets (host numpy, trimmed)."""
-        host = self._gather_host(self.evaluate_device(filter_expr)).reshape(
-            self.n_partitions, self.n_words)
+    def _per_partition(self, host: np.ndarray) -> list[np.ndarray]:
+        """Host flat words [PW] -> per-partition packed bitsets, trimmed."""
+        host = host.reshape(self.n_partitions, self.n_words)
         return [
             host[pi, : bitset.words_for(n)] for pi, n in enumerate(self.part_rows)
         ]
 
+    def evaluate(self, filter_expr) -> list[np.ndarray]:
+        """Per-partition packed bitsets (host numpy, trimmed)."""
+        return self._per_partition(
+            self._gather_host(self.evaluate_device(filter_expr)))
+
+    # from this many flat words on, evaluate_compact copies the non-zero
+    # words instead of the bitset: on an NVIDIA H100 80GB HBM3 (700 W) the
+    # bitset copy is faster per call at 131,072 and 312,512 words and the
+    # extraction at 1,048,576 (chip_smoke.py's compaction sweep). The cap
+    # is the reference's (device_engine.py:785).
+    COMPACT_MIN_WORDS = 1048576
+    COMPACT_CAP_WORDS = 16384
+
     def evaluate_compact(self, filter_expr) -> list[np.ndarray]:
-        """evaluate(); the fused nonzero-word extraction of the reference is
-        not ported yet."""
-        return self.evaluate(filter_expr)
+        """evaluate() for row-materializing actions at scale (Details, Fasta,
+        Insertions; the reference's device_engine.py:782-822): after the VM
+        launch, in the same queued work, each shard extracts its count of
+        non-zero words and the first COMPACT_CAP_WORDS of their (global
+        index, word) pairs (reductions.compact_nonzero), and one copy brings
+        the counts and pairs to the host, which rebuilds the bitsets. When
+        the pairs overflow the cap, the words the VM already wrote are
+        copied instead (no second pass). Trivial FULL/ZERO filters and
+        corpora under COMPACT_MIN_WORDS flat words copy the bitset."""
+        if self.n_flat_words < self.COMPACT_MIN_WORDS:
+            return self.evaluate(filter_expr)
+        program, _regs = self.lower(filter_expr)
+        trivial = self._trivial_words(program)
+        if trivial is not None:
+            return self._per_partition(self._gather_host(trivial))
+        words, _counts = self._run(self._prepare_program(program))
+        return self._per_partition(self._compact_to_host(words))
+
+    def _compact_to_host(self, words: list[torch.Tensor]) -> np.ndarray:
+        """Host flat words [PW] from the shards' words, through their
+        non-zero (index, word) pairs while they fit the cap."""
+        with self._on_stream():
+            host = compact_to_host(words, self.shards.offsets,
+                                   self.COMPACT_CAP_WORDS, self.device,
+                                   self.n_flat_words)
+        return self._gather_host(words) if host is None else host
 
     def device_filter(self, filter_expr) -> "DeviceFilter":
         """Evaluate the filter and KEEP it on the device: Mutations needs
         only device reductions."""
         return DeviceFilter(self, self.evaluate_device(filter_expr))
 
+    # -- group-by (Aggregated with groupByFields) -------------------------
+
+    _GROUP_BUCKETS = (64, 1024, 16384, 1 << 20)
+    # column lists whose codes stay on the devices: each holds 4 bytes per
+    # sequence slot on every shard, outside the pool's budget, and the
+    # lists come from the clients, so the cache drops the least recent
+    GROUP_CODES_CACHED = 8
+
+    def group_codes_for(self, column_names: list[str]):
+        """Per-sequence combined group codes for a column list, cached for
+        the GROUP_CODES_CACHED lists used last: (codes per shard, n_groups,
+        decode(group_id) -> per-column raw code tuple). The codes are built
+        on the host (int32 [P, W*32]; a padding sequence carries the code
+        n_groups) and split over the word shards like the words: shard d
+        holds the codes of its words' bits, [32 * PW/D] on its device. None
+        where a column kind cannot be coded densely or the key space exceeds
+        the largest bucket, 2^20 groups (the reference's
+        device_engine.py:1436-1508, whose host path then answers). The key
+        keeps the list's order: the codes, and so the rows' order, follow
+        it."""
+        key = tuple(column_names)
+        with self._group_codes_lock:
+            if key in self._group_codes:
+                self._group_codes.move_to_end(key)
+                return self._group_codes[key]
+        result = self._build_group_codes(column_names)
+        with self._group_codes_lock:
+            self._group_codes[key] = result
+            while len(self._group_codes) > self.GROUP_CODES_CACHED:
+                self._group_codes.popitem(last=False)
+        return result
+
+    def _build_group_codes(self, column_names: list[str]):
+        """group_codes_for's value for one column list, uncached."""
+        sizes = []
+        per_column_codes = []  # per column: list per partition of int64[N]
+        per_column_values = []  # per column: sorted unique raw codes | None
+        for name in column_names:
+            columns = [p.columns[name] for p in self.db.partitions]
+            kind = columns[0].kind
+            if kind in ("string", "indexed_string", "indexed_pango_lineage",
+                        "nuc_insertion", "aa_insertion"):
+                codes = [c.ids.astype(np.int64) for c in columns]
+                size = max((int(c.max()) + 1 if len(c) else 1) for c in codes)
+                per_column_values.append(None)
+            elif kind in ("date", "int", "float"):
+                if kind == "float":
+                    # canonicalize before taking bit patterns: -0.0 == 0.0
+                    # and every NaN must be ONE group (host groups by value)
+                    raws = []
+                    for c in columns:
+                        vals = c.values.copy()
+                        vals[vals == 0.0] = 0.0
+                        vals[np.isnan(vals)] = np.nan
+                        raws.append(vals.view(np.int64))
+                else:
+                    raws = [c.values.astype(np.int64) for c in columns]
+                uniq = np.unique(np.concatenate(raws)) if raws else np.zeros(0)
+                codes = [np.searchsorted(uniq, r) for r in raws]
+                size = max(len(uniq), 1)
+                per_column_values.append(uniq)
+            else:
+                return None
+            sizes.append(size)
+            per_column_codes.append(codes)
+        n_groups = 1
+        for size in sizes:
+            n_groups *= size
+        if n_groups > self._GROUP_BUCKETS[-1]:
+            return None
+        combined = np.full((self.n_partitions, self.n_words * 32), n_groups,
+                           dtype=np.int32)
+        for pi, partition in enumerate(self.db.partitions):
+            acc = np.zeros(partition.sequence_count, dtype=np.int64)
+            for ci in range(len(column_names)):
+                acc = acc * sizes[ci] + per_column_codes[ci][pi]
+            combined[pi, : partition.sequence_count] = acc
+
+        def decode(group_id: int):
+            out = []
+            for ci in range(len(column_names) - 1, -1, -1):
+                group_id, code = divmod(group_id, sizes[ci])
+                if per_column_values[ci] is not None:
+                    code = int(per_column_values[ci][code])
+                out.append(code)
+            return tuple(reversed(out))
+
+        flat = combined.reshape(-1)
+        local = 32 * self.shards.local_words
+        codes_on = [torch.from_numpy(flat[d * local:(d + 1) * local]).to(shard)
+                    for d, shard in enumerate(self.shards.devices)]
+        return codes_on, n_groups, decode
+
     def group_counts(self, filter_expr, column_names: list[str]):
-        """Not ported yet: None is the reference's "use the host path"."""
-        return None
+        """Aggregated with groupByFields on the device: the filter's words,
+        then per shard the group-count kernel over its words and codes
+        ([P, G] partials, added on the primary device), G the first bucket
+        that holds n_groups, plus one. Returns [(decoded group tuple,
+        count)] in the host path's row order, or None when the columns are
+        unsupported (group_codes_for)."""
+        prepared = self.group_codes_for(column_names)
+        if prepared is None:
+            return None
+        codes_on, n_groups, decode = prepared
+        bucket = next(b for b in self._GROUP_BUCKETS if b >= n_groups)
+        words = self.evaluate_device(filter_expr)
+        with self._on_stream():
+            partials = [kernels.group_counts(part, codes, offset, self.n_words,
+                                             self.n_partitions, bucket + 1)
+                        for part, codes, offset
+                        in zip(words, codes_on, self.shards.offsets)]
+            per_part = reduce_sum(partials, self.device).cpu().numpy()
+        per_part = per_part[:, :n_groups]  # [P, G]
+        totals = per_part.sum(axis=0, dtype=np.int64)
+        hits = np.nonzero(totals)[0]
+        # Row order identical to the host path: groups appear when first
+        # seen scanning partitions in order, sorted by code within each
+        # partition's novel set.
+        first_partition = np.argmax(per_part[:, hits] > 0, axis=0)
+        order = np.lexsort((hits, first_partition))
+        return [(decode(int(g)), int(totals[g])) for g in hits[order]]
 
     # -- counts -------------------------------------------------------------------
 

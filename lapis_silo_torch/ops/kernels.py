@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels: build, bind, wrap, count.
 
 Five kernels carry the count and Mutations paths over both tiers of the
-bank, each in ``csrc/`` (TPU kernels in
+bank and a sixth the group-by, each in ``csrc/`` (TPU kernels in
 ``lapis_silo_tpu/ops/pallas_kernels.py``), and three wrappers launch them in
 the forms the TPU package wrote as kernels of their own:
 
@@ -25,7 +25,11 @@ the forms the TPU package wrote as kernels of their own:
   first shard's device, replacing ``:741`` ``vm_run_sharded`` and ``:777``
   ``mutation_counts_banked_sharded``;
 - ``popcount_rows_and_filter``: K2 over every row of a row block, replacing
-  ``:104`` ``popcount_rows_and_filter`` (no engine path calls it).
+  ``:104`` ``popcount_rows_and_filter`` (no engine path calls it);
+- ``group_counts`` (``csrc/group_counts.cu``): the group-by reduction of a
+  filter over per-sequence group codes, counts per (partition, group),
+  replacing the XLA reduction ``_group_counts_jit``
+  (``lapis_silo_tpu/ops/reductions.py:23``), which is no Pallas kernel.
 
 At first use each source is compiled with its own ``nvcc`` (all started
 together) for ``sm_90a`` and the objects are linked into one shared library
@@ -102,9 +106,11 @@ MUTATION_COUNTS_SHARDED = KernelCounts(
     "mutation_counts_sharded", "lapis_silo_torch/csrc/mutation_counts.cu")
 POPCOUNT_ROWS = KernelCounts("popcount_rows_and_filter",
                              "lapis_silo_torch/csrc/mutation_counts.cu")
+GROUP_COUNTS = KernelCounts("group_counts",
+                            "lapis_silo_torch/csrc/group_counts.cu")
 KERNELS = (VM_RUN, MUTATION_COUNTS, SPARSE_COUNTS, DENSIFY_ROWS,
            DENSIFY_INTO_POOL, VM_RUN_SHARDED, MUTATION_COUNTS_SHARDED,
-           POPCOUNT_ROWS)
+           POPCOUNT_ROWS, GROUP_COUNTS)
 
 
 def reset_counts() -> None:
@@ -129,6 +135,8 @@ _SIGNATURES = {
                            _P],
     "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
                                      _I64, _P, _I64, _P, _P],
+    "lapis_group_counts": [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P,
+                           _P],
 }
 
 
@@ -761,3 +769,51 @@ def densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots,
     slots = torch.as_tensor(slots, dtype=torch.int64).reshape(-1)
     pool[slots.to(pool.device)] = _densify(idx, words, starts, lens,
                                            pool.shape[1], w_off)
+
+
+# -- K9: the group-by reduction ---------------------------------------------
+
+def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
+                 part_words: int, n_partitions: int,
+                 n_groups: int) -> torch.Tensor:
+    """counts[p, g] = the number of set bits of the window's words [n] (the
+    global words [w_off, w_off + n); partition p owns the global words
+    [p * part_words, (p + 1) * part_words)) whose code in codes [n * 32]
+    (one per bit), clipped to n_groups - 1, is g; negative codes count
+    nowhere. int32 [n_partitions, n_groups] on the inputs' device."""
+    device = words.device
+    _check("words", words, device, (None,))
+    _check("codes", codes, device, (32 * words.shape[0],))
+    if part_words < 1 or n_groups < 1 or n_partitions < 1:
+        raise ValueError(f"part_words {part_words}, n_groups {n_groups} and "
+                         f"n_partitions {n_partitions} must be positive")
+    if w_off < 0 or w_off + words.shape[0] > part_words * n_partitions:
+        raise ValueError(f"window [{w_off}, {w_off + words.shape[0]}) outside "
+                         f"the {n_partitions} x {part_words} words")
+    if device.type == "cpu":
+        return group_counts_plain(words, codes, w_off, part_words,
+                                  n_partitions, n_groups)
+    if device.type != "cuda":
+        raise ValueError(f"group_counts: no kernel for device {device}")
+    lib = load_library()
+    out = torch.zeros((n_partitions, n_groups), dtype=torch.int32,
+                      device=device)
+    p_lo = w_off // part_words
+    p_hi = min(-(-(w_off + words.shape[0]) // part_words), n_partitions)
+    with torch.cuda.device(device):
+        err = lib.lapis_group_counts(
+            words.data_ptr(), codes.data_ptr(), words.shape[0], w_off,
+            part_words, p_lo, p_hi - p_lo, n_groups, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "group_counts")
+    GROUP_COUNTS.add()
+    return out
+
+
+def group_counts_plain(words: torch.Tensor, codes: torch.Tensor, w_off: int,
+                       part_words: int, n_partitions: int,
+                       n_groups: int) -> torch.Tensor:
+    """The plain PyTorch version of group_counts (ops/reductions.py)."""
+    GROUP_COUNTS.add(plain=True)
+    return reductions.group_counts(words, codes, w_off, part_words,
+                                   n_partitions, n_groups)

@@ -1,10 +1,13 @@
 """Plain reductions over device-resident words.
 
-Counterparts of ``_popcount_words_jit``, ``_mutation_counts_jit`` and
-``_sparse_mutation_counts_jit`` in ``lapis_silo_tpu/ops/reductions.py``.
-``popcount_words`` runs as plain tensor ops on every device (the reference
-left it to XLA, too). ``mutation_counts`` and ``sparse_counts`` are the
-plain versions of the Mutations kernels (``csrc/mutation_counts.cu``,
+Counterparts of ``_popcount_words_jit``, ``_group_counts_jit``,
+``_mutation_counts_jit`` and ``_sparse_mutation_counts_jit`` in
+``lapis_silo_tpu/ops/reductions.py``, and of the fused nonzero-word
+extraction of ``lapis_silo_tpu/ops/vm.py:505-514``. ``popcount_words`` and
+``compact_nonzero`` run as plain tensor ops on every device (the reference
+left both to XLA, too). ``group_counts``, ``mutation_counts`` and
+``sparse_counts`` are the plain versions of the group-by and Mutations
+kernels (``csrc/group_counts.cu``, ``csrc/mutation_counts.cu``,
 ``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
 CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
 ``entry_chunks`` and ``clip_bounds`` split the sparse-tier stream's entries
@@ -26,6 +29,56 @@ _SLICE_WORDS = 1 << 24
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """Total population count of a word tensor (0-d int64, on its device)."""
     return popcount(words).sum()
+
+
+def compact_nonzero(words: torch.Tensor, cap: int, offset: int = 0
+                    ) -> torch.Tensor:
+    """The non-zero words of `words` [n] (a word shard whose first word is
+    global word `offset`) as one int32 block [1 + 2 cap] on their device:
+    the count of non-zero words, then the global indices of the first `cap`
+    of them, ascending, then their words; slots past the count hold index
+    `offset` and its word (the reference's fill value 0). Fixed-size: a
+    prefix sum of `words != 0` and a scatter, so it queues behind the launch
+    that wrote the words and nothing waits for the card."""
+    device = words.device
+    nonzero = words != 0
+    rank = torch.cumsum(nonzero, 0) - 1  # rank among the non-zero words
+    # a word's slot: its rank if among the first `cap`, else the trash
+    # slot `cap`
+    slot = torch.where(nonzero & (rank < cap), rank, cap)
+    local = torch.zeros(cap + 1, dtype=torch.int64, device=device)
+    local.scatter_(0, slot, torch.arange(words.shape[0], device=device))
+    local = local[:cap]
+    block = torch.empty(1 + 2 * cap, dtype=torch.int32, device=device)
+    block[0] = nonzero.sum()
+    block[1:1 + cap] = local + offset
+    block[1 + cap:] = words[local]
+    return block
+
+
+def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
+                 part_words: int, n_partitions: int,
+                 n_groups: int) -> torch.Tensor:
+    """counts[p, g] = the number of set bits b of words[w] (the window of
+    global words [w_off, w_off + n), partition p owning the global words
+    [p * part_words, (p + 1) * part_words)) with min(codes[w*32 + b],
+    n_groups - 1) == g, for words [n] and codes [n * 32] int32; negative
+    codes count nowhere. The per-bit segment sum of _group_counts_jit
+    (lapis_silo_tpu/ops/reductions.py:23-40) over a window; every shift is
+    masked (the words are u32 held as int32). int32 [P, n_groups]."""
+    device = words.device
+    n = words.shape[0]
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    bits = ((words.to(torch.int64)[:, None] >> shifts) & 1).reshape(-1)
+    part = torch.div(w_off + torch.arange(n, device=device), part_words,
+                     rounding_mode="floor").repeat_interleave(32)
+    codes = codes.to(torch.int64)
+    keep = (bits != 0) & (codes >= 0)
+    segment = part * n_groups + codes.clamp(max=n_groups - 1)
+    out = torch.zeros(n_partitions * n_groups, dtype=torch.int64,
+                      device=device)
+    out.index_add_(0, segment[keep], bits[keep])
+    return out.view(n_partitions, n_groups).to(torch.int32)
 
 
 def mutation_counts(bank: torch.Tensor, filters: torch.Tensor, start: int,
