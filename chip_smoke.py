@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one NVIDIA GPU: counts, group-by, Details
-and Mutations through the engine, then a snapshot served over HTTP.
+and Mutations through the engine, a snapshot served over HTTP, and input
+files ingested by the port into a snapshot that it serves on the card.
 
     python3 chip_smoke.py
 
@@ -70,10 +71,30 @@ Phases, one line each or more (the last line is the JSON verdict):
      Mutations queries, the group-by and Details queries, all equal to the
      host oracle, through the window-local pool updates and densified blocks
      and the entry-split sparse Mutations;
-  6. assertions: every kernel launched during phases 4, 5, 7, 8 and 9 (but
-     popcount_rows_and_filter, which no engine path calls) and no plain
-     version ran there, no module of jax* or lapis_silo_tpu* was loaded,
-     the device path stayed on.
+  10. ingest, the slice's path: lapis_silo_torch.testing.write_ingest_inputs
+     writes 65,536 records x 29,903 positions as NDJSON (about 2 GB; a gene,
+     unaligned sequences, insertions, null sequences, metadata of every
+     type with nulls; partitionBy and dateToSortBy) under build/; the
+     NDJSON scanner (libsilo_ndjson.so) is built before the timed ingests,
+     and its build time logged apart; the port's
+     CLI (python -m lapis_silo_torch.cli --preprocessing, in a subprocess,
+     through a thin wrapper around its main that records the NDJSON scanner
+     and the loaded modules) ingests it into a snapshot with the native
+     scanner and no jax* or lapis_silo_tpu* module; the port's watcher
+     loads it onto the visible card and make_server serves it on port 0:
+     64 counts, the group-by queries, per-country counts, 8 NucleotideEquals
+     counts, one Details, two Mutations, one AminoAcidMutations, one
+     Insertions and /info over HTTP, every body equal to the host oracle
+     over the same snapshot, and the per-country and NucleotideEquals
+     counts also to the writer's own arrays; then the same file through
+     --ingestShards 2, whose snapshot gives every body again; ingest,
+     save, load+install and warm-up seconds and p50 per action, beside the
+     card's name
+     and power limit;
+  6. assertions: every kernel launched during phases 4, 5, 7, 8, 9 and 10
+     (but popcount_rows_and_filter, which no engine path calls) and no plain
+     version ran there, K1, K2 and K9 launched in phase 10, no module of
+     jax* or lapis_silo_tpu* was loaded, the device path stayed on.
 
 Each main-path phase runs with the launch counts set to 0 just before it and
 read just after; the comparisons between phases are not counted. There is no
@@ -107,6 +128,7 @@ DEVICE = "cuda"
 BENCH = dict(n_rows=65536, length=29903, n_partitions=1)
 DEPLOYMENT = dict(n_rows=1048576, length=29903, n_partitions=4)
 TWO_TIER = dict(n_rows=2097152, length=29903, n_partitions=8)
+INGEST = dict(n_rows=65536, length=29903, seed=0)
 N_SHARDS = 4
 # kernels that no main-path phase runs (they have no engine caller)
 OFF_PATH = ("popcount_rows_and_filter",)
@@ -1061,7 +1083,8 @@ def http(port: int, method: str, path: str, body: str | None = None):
         conn.close()
 
 
-def serve_checks(port: int, served, db, answers: dict, label: str) -> dict:
+def serve_checks(port: int, served, db, answers: dict, label: str,
+                 note: str = "") -> dict:
     """Every query of `answers` ({action: (queries, oracle answers)}) over
     HTTP, each body equal to the host oracle's and each data-version the
     served snapshot's; GET /info equal to db.info(). Returns the p50 ms per
@@ -1082,7 +1105,7 @@ def serve_checks(port: int, served, db, answers: dict, label: str) -> dict:
     log(label, f"over HTTP every body equals the host oracle "
         f"({', '.join(f'{len(q)} {a}' for a, (q, _) in answers.items())}) "
         f"and /info equals db.info(); p50 per action "
-        f"{ {a: round(ms, 3) for a, ms in p50.items()} } ms")
+        f"{ {a: round(ms, 3) for a, ms in p50.items()} } ms{note}")
     return p50
 
 
@@ -1093,10 +1116,7 @@ def phase9(main: MainPath, kernels, torch, db, answers: dict) -> dict:
     port 0, by the Python server and, where libsilo_http.so builds,
     by the native server and its count fast path. Returns the set-up
     seconds and the p50 per action."""
-    import lapis_silo_torch
     from lapis_silo_torch.server import native_http
-    from lapis_silo_torch.server.http_server import DatabaseMutex, make_server
-    from lapis_silo_torch.server.watcher import DatabaseDirectoryWatcher
     from lapis_silo_torch.storage.snapshot import save_database
 
     data_dir = ROOT / "build" / "smoke_data"
@@ -1105,8 +1125,123 @@ def phase9(main: MainPath, kernels, torch, db, answers: dict) -> dict:
     path = Path(save_database(db, str(data_dir)))
     t_save = time.perf_counter() - t0
     size = sum(f.stat().st_size for f in path.iterdir())
+    out = {"save_s": t_save, "bytes": size}
+    mutex, served, out["load_s"], out["warmup_s"] = load_served(data_dir,
+                                                                torch)
+    assert served.info() == db.info()
+    engine = served.device_engine
+    engine.COMPACT_MIN_WORDS = 0
+    log("9 setup", f"snapshot of {db.info()['sequenceCount']} sequences "
+        f"saved by the port in {t_save:.1f} s ({size / 1e9:.3f} GB on "
+        f"disk); the watcher loaded it and installed the port's engine on "
+        f"{[str(d) for d in engine.shards.devices]} in "
+        f"{out['load_s']:.1f} s and warmed it up in {out['warmup_s']:.1f} "
+        f"s; COMPACT_MIN_WORDS set to 0 on the served engine "
+        f"({engine.n_flat_words} flat words) so Details goes through "
+        f"evaluate_compact")
+    if not native_http.native_http_available():
+        log("9 native", "libsilo_http.so did not build here: the "
+            "native server is not checked")
+    out["python"] = serve_once(main, kernels, mutex, served, answers,
+                               "9 python", impl="python")
+    if native_http.native_http_available():
+        out["native"] = serve_once(main, kernels, mutex, served, answers,
+                                   "9 native", fast=True)
+        out["fast"] = out["native"].pop("fast")
+    del engine
+    detach(served, torch)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
+# runs the port's CLI main in a subprocess and prints, as its last line, its
+# exit code, the ingest's and the save's seconds, the NDJSON scanners the
+# preprocessor made and the modules of jax* and lapis_silo_tpu* loaded
+INGEST_WRAPPER = """
+import json, sys, time
+from lapis_silo_torch import cli
+from lapis_silo_torch.preprocessing.preprocessor import Preprocessor
+from lapis_silo_torch.storage import snapshot
+made, saved = [], []
+make, save = Preprocessor._make_ndjson_scanner, snapshot.save_database
+
+def recording_make(self, *args, **kwargs):
+    scanner = make(self, *args, **kwargs)
+    made.append(type(scanner).__name__)
+    return scanner
+
+def timed_save(*args, **kwargs):
+    t0 = time.perf_counter()
+    path = save(*args, **kwargs)
+    saved.append(time.perf_counter() - t0)
+    return path
+
+Preprocessor._make_ndjson_scanner = recording_make
+snapshot.save_database = timed_save
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+total = time.perf_counter() - t0
+print(json.dumps({"rc": rc, "ingest_s": total - sum(saved),
+                  "save_s": sum(saved), "scanners": made,
+                  "banned": sorted(m for m in sys.modules if m.split(".")[0]
+                                   in ("jax", "jaxlib", "lapis_silo_tpu"))}))
+"""
+
+
+def cli_ingest(base: Path, config: Path, inputs, label: str,
+               shards: int = 1) -> dict:
+    """The port's CLI --preprocessing on `config` in a subprocess (its
+    output under `base`, SILO_NDJSON_NATIVE unset): it must exit 0, scan
+    with the native scanner and load no module of jax* or lapis_silo_tpu*.
+    Returns the wrapper's report with the snapshot's path and size."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SILO_NDJSON_NATIVE", "PYTHONPATH")}
+    env["PYTHONPATH"] = str(ROOT)
+    argv = ["--preprocessing", "--preprocessingConfig", str(config),
+            "--databaseConfig", inputs.database_config]
+    if shards > 1:
+        argv += ["--ingestShards", str(shards)]
+    log_path = base / f"ingest_{label}.log"
+    with open(log_path, "w") as log_file:
+        done = subprocess.run([sys.executable, "-c", INGEST_WRAPPER, *argv],
+                              cwd=base, env=env, stdout=subprocess.PIPE,
+                              stderr=log_file, text=True, timeout=900)
+    if done.returncode != 0:
+        print(log_path.read_text()[-4000:], flush=True)
+        raise SystemExit(f"ingest {label} exited {done.returncode}")
+    report = json.loads(done.stdout.strip().splitlines()[-1])
+    assert report["rc"] == 0, report
+    assert report["scanners"][:1] == ["NativeNdjsonScanner"], report
+    assert report["banned"] == [], report
+    import yaml
+
+    out = Path(yaml.safe_load(config.read_text())["outputDirectory"])
+    (snapshot_dir,) = out.iterdir()
+    report["path"] = snapshot_dir
+    report["bytes"] = sum(f.stat().st_size for f in snapshot_dir.iterdir())
+    lines = [line.split("] ")[-1]
+             for line in log_path.read_text().splitlines()]
+    scanned = [line for line in lines if line.startswith("scanning")]
+    log("10 ingest", f"{label}: {INGEST['n_rows']} records in "
+        f"{report['ingest_s']:.2f} s ({INGEST['n_rows'] / report['ingest_s']:.0f} "
+        f"records/s), saved in {report['save_s']:.2f} s "
+        f"({report['bytes'] / 1e9:.3f} GB on disk); scanners "
+        f"{report['scanners']}, log: {scanned[0]}; jax* and "
+        f"lapis_silo_tpu* modules loaded: {report['banned']}; "
+        f"{nvidia_smi()}")
+    return report
+
+
+def load_served(path: Path, torch):
+    """The snapshot directory's newest snapshot loaded by the port's watcher
+    onto the visible card(s); returns (mutex, database, load+install s,
+    warm-up s)."""
+    import lapis_silo_torch
+    from lapis_silo_torch.server.http_server import DatabaseMutex
+    from lapis_silo_torch.server.watcher import DatabaseDirectoryWatcher
+
     mutex = DatabaseMutex()
-    watcher = DatabaseDirectoryWatcher(str(data_dir), mutex, poll_seconds=3600)
+    watcher = DatabaseDirectoryWatcher(str(path), mutex, poll_seconds=3600)
     warm = {}
 
     def timed_warmup(database):
@@ -1115,56 +1250,171 @@ def phase9(main: MainPath, kernels, torch, db, answers: dict) -> dict:
         warm["s"] = time.perf_counter() - t
 
     watcher._warmup = timed_warmup
-    out = {"save_s": t_save, "bytes": size}
+    t0 = time.perf_counter()
+    watcher.check_once()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    served = mutex.get_database()
+    assert isinstance(served.device_engine, lapis_silo_torch.DeviceEngine)
+    assert served.device_engine.device.type == torch.device(DEVICE).type
+    assert served._engine._use_device
+    return mutex, served, seconds - warm["s"], warm["s"]
+
+
+def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
+               label: str, impl: str = "native", fast: bool = False) -> dict:
+    """`answers` over HTTP from make_server on port 0 with SILO_HTTP_IMPL
+    `impl` (and, with `fast`, the counts again through the native fast
+    path), with the launch counts set to 0 just before and read just after:
+    K1, K2 and K9 launched and no plain version ran. Returns the p50 ms per
+    action (and the fast path's under "fast")."""
+    from lapis_silo_torch.server import native_http
+    from lapis_silo_torch.server.http_server import make_server
+
+    os.environ["SILO_HTTP_IMPL"] = impl
     with main.phase():
-        t0 = time.perf_counter()
-        watcher.check_once()
-        torch.cuda.synchronize()
-        out["warmup_s"] = warm["s"]
-        out["load_s"] = time.perf_counter() - t0 - warm["s"]
-        served = mutex.get_database()
-        engine = served.device_engine
-        assert isinstance(engine, lapis_silo_torch.DeviceEngine), engine
-        assert engine.device.type == torch.device(DEVICE).type
-        assert served._engine._use_device
-        engine.COMPACT_MIN_WORDS = 0
-        log("9 setup", f"snapshot of {db.info()['sequenceCount']} sequences "
-            f"saved by the port in {t_save:.1f} s ({size / 1e9:.3f} GB on "
-            f"disk); the watcher loaded it and installed the port's engine on "
-            f"{[str(d) for d in engine.shards.devices]} in "
-            f"{out['load_s']:.1f} s and warmed it up in {out['warmup_s']:.1f} "
-            f"s; COMPACT_MIN_WORDS set to 0 on the served engine "
-            f"({engine.n_flat_words} flat words) so Details goes through "
-            f"evaluate_compact")
-        impls = ["python"] + (["native"] if native_http.native_http_available()
-                              else [])
-        if len(impls) == 1:
-            log("9 native", "libsilo_http.so did not build here: the "
-                "native server is not checked")
-        for impl in impls:
-            os.environ["SILO_HTTP_IMPL"] = impl
-            server = make_server(mutex, port=0)
-            assert isinstance(server, native_http.NativeHTTPServer) == (
-                impl == "native")
-            threading.Thread(target=server.serve_forever, daemon=True).start()
-            port = server.server_address[1]
-            try:
-                out[impl] = serve_checks(port, served, db, answers,
-                                         f"9 {impl}")
-                if impl == "native":
-                    out["fast"] = fast_path_checks(native_http, port, served,
-                                                   *answers["counts"])
-            finally:
-                server.shutdown()
-                server.server_close()
+        server = make_server(mutex, port=0)
+        assert isinstance(server, native_http.NativeHTTPServer) == (
+            impl == "native"), (impl, type(server))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        try:
+            p50 = serve_checks(port, served, served, answers, label,
+                               f"; {nvidia_smi()}")
+            if fast:
+                p50["fast"] = fast_path_checks(native_http, port, served,
+                                               *answers["counts"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            os.environ.pop("SILO_HTTP_IMPL", None)
         for k in (kernels.VM_RUN, kernels.MUTATION_COUNTS,
                   kernels.GROUP_COUNTS):
-            assert k.launches > 0, f"{k.name} did not launch in phase 9"
-        log("9 done", f"launches { {k.name: k.launches for k in kernels.KERNELS} }")
-    os.environ.pop("SILO_HTTP_IMPL", None)
-    del engine
-    detach(served, torch)
-    shutil.rmtree(data_dir, ignore_errors=True)
+            assert k.launches > 0, f"{k.name} did not launch in {label}"
+        assert not any(k.plain_launches for k in kernels.KERNELS), label
+        log(f"{label} launches", f"{ {k.name: k.launches for k in kernels.KERNELS} } "
+            f"({type(server).__name__})")
+    return p50
+
+
+def phase10(main: MainPath, kernels, torch) -> dict:
+    """The slice's path: seeded input files ingested by the port's CLI, once
+    in one process and once over 2 shard processes, each snapshot loaded by
+    the port's watcher onto the card and served over HTTP; every body equal
+    to the host oracle over the first snapshot, and the per-country and
+    NucleotideEquals counts to the writer's arrays."""
+    import yaml
+
+    from lapis_silo_torch import native
+    from lapis_silo_torch.testing import sample_count_queries, write_ingest_inputs
+
+    base = ROOT / "build" / "smoke_ingest"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    inputs = write_ingest_inputs(
+        base / "in", **INGEST, intermediate_directory=base / "inter_single",
+        output_directory=base / "out_single")
+    ndjson = base / "in" / "input_file.ndjson"
+    log("10 input", f"{INGEST['n_rows']} records x {INGEST['length']} "
+        f"positions as NDJSON ({ndjson.stat().st_size / 1e9:.3f} GB) written "
+        f"in {time.perf_counter() - t0:.1f} s; {int(inputs.null_sequence.sum())} "
+        f"null sequences")
+    single = Path(inputs.preprocessing_config)
+    sharded = base / "in" / "preprocessing_config_sharded.yaml"
+    config = yaml.safe_load(single.read_text())
+    config.update(intermediateResultsDirectory=str(base / "inter_sharded"),
+                  outputDirectory=str(base / "out_sharded"))
+    sharded.write_text(yaml.safe_dump(config))
+
+    # the NDJSON scanner is built here, before the timed ingests, which
+    # then find it fresh
+    t0 = time.perf_counter()
+    assert native.get_named_lib("libsilo_ndjson.so") is not None, (
+        "libsilo_ndjson.so did not build")
+    out = {"scanner_build_s": time.perf_counter() - t0}
+    log("10 build", f"libsilo_ndjson.so built from native/silo_ndjson.cpp "
+        f"against native_include/zstd.h in {out['scanner_build_s']:.2f} s; "
+        f"{nvidia_smi()}")
+    out["single"] = cli_ingest(base, single, inputs, "single process")
+    mutex, served, out["load_s"], out["warmup_s"] = load_served(
+        base / "out_single", torch)
+    assert len(served.partitions) == 4, len(served.partitions)
+    log("10 load", f"the watcher loaded {served.info()} in "
+        f"{[p.sequence_count for p in served.partitions]} partitions and "
+        f"installed the port's engine on "
+        f"{[str(d) for d in served.device_engine.shards.devices]} in "
+        f"{out['load_s']:.2f} s (load+install) and warmed it up in "
+        f"{out['warmup_s']:.2f} s; {nvidia_smi()}")
+
+    countries = json.dumps({
+        "action": {"type": "Aggregated", "groupByFields": ["country"]},
+        "filterExpression": {"type": "True"}})
+    order = np.argsort(np.bincount(inputs.mut_pos * 5 + inputs.mut_sym))[::-1]
+    pairs = [(int(code // 5) + 1, "-ACGT"[int(code % 5)])
+             for code in order[:4]]
+    pairs += [(int(pos) + 1, "-ACGT"[int(inputs.reference_ids[pos])])
+              for pos in (0, 2400, 21562, INGEST["length"] - 1)]
+    equals = [json.dumps({"action": {"type": "Aggregated"},
+                          "filterExpression": {
+                              "type": "NucleotideEquals", "position": pos,
+                              "symbol": sym}}) for pos, sym in pairs]
+    leaf = json.loads(mutations_queries(served)[0])["filterExpression"]
+    queries = {
+        "counts": sample_count_queries(served, 64, seed=1),
+        "group-by": groupby_queries(served),
+        "countries": [countries],
+        "NucleotideEquals": equals,
+        "Details": details_queries(served)[:1],
+        "Mutations": mutations_queries(served),
+        "AminoAcidMutations": [json.dumps({
+            "action": {"type": "AminoAcidMutations", "minProportion": 0.01},
+            "filterExpression": leaf})],
+        "Insertions": [json.dumps({"action": {"type": "Insertions"},
+                                   "filterExpression": leaf})],
+    }
+    answers = {action: (qs, oracle(served, qs))
+               for action, qs in queries.items()}
+    got = {row["country"]: row["count"]
+           for row in answers["countries"][1][0]["queryResult"]}
+    assert got == inputs.country_counts(), (got, inputs.country_counts())
+    for (pos, sym), want in zip(pairs, answers["NucleotideEquals"][1]):
+        assert want["queryResult"][0]["count"] == inputs.nucleotide_count(
+            pos, sym), (pos, sym)
+    log("10 oracle", f"the host oracle's per-country counts and "
+        f"{len(pairs)} NucleotideEquals counts ({pairs}) equal the writer's "
+        f"arrays counted with numpy")
+    served.device_engine.COMPACT_MIN_WORDS = 0
+    out["p50"] = serve_once(main, kernels, mutex, served, answers, "10c")
+    info = served.info()
+    del mutex, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["sharded"] = cli_ingest(base, sharded, inputs, "2 shards", shards=2)
+    mutex, served, out["sharded_load_s"], out["sharded_warmup_s"] = (
+        load_served(base / "out_sharded", torch))
+    assert served.info() == info, (served.info(), info)
+    served.device_engine.COMPACT_MIN_WORDS = 0
+    out["sharded_p50"] = serve_once(main, kernels, mutex, served, answers,
+                                    "10e")
+    log("10 done", f"scanner build {out['scanner_build_s']:.2f} s; single "
+        f"process: ingest {out['single']['ingest_s']:.2f} s, save "
+        f"{out['single']['save_s']:.2f} s ({out['single']['bytes']} bytes), "
+        f"load+install {out['load_s']:.2f} s, warm-up {out['warmup_s']:.2f} "
+        f"s, p50 ms { {a: round(v, 3) for a, v in out['p50'].items()} }; "
+        f"2 shards: ingest {out['sharded']['ingest_s']:.2f} s, save "
+        f"{out['sharded']['save_s']:.2f} s, load+install "
+        f"{out['sharded_load_s']:.2f} s, warm-up "
+        f"{out['sharded_warmup_s']:.2f} s, p50 ms "
+        f"{ {a: round(v, 3) for a, v in out['sharded_p50'].items()} }; "
+        f"host times on the card's machine; {nvidia_smi()}")
+    del mutex, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+    for run in ("single", "sharded"):
+        out[run] = {k: v for k, v in out[run].items() if k != "path"}
     return out
 
 
@@ -1388,6 +1638,9 @@ def main() -> int:
     del answers
     gc.collect()
 
+    # 10: input files ingested by the port, served on the card
+    ingested = phase10(main_path, kernels, torch)
+
     # 6
     loaded = sorted(m for m in sys.modules
                     if m.startswith(JAX_MODULES) and sys.modules[m] is not None)
@@ -1395,7 +1648,8 @@ def main() -> int:
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
     log("6 summary", "compaction (torch ops, no kernel) "
-        + json.dumps(compaction) + "; phase 9 " + json.dumps(served))
+        + json.dumps(compaction) + "; phase 9 " + json.dumps(served)
+        + "; phase 10 " + json.dumps(ingested))
     assert all(n for name, n in main_path.launches.items()
                if name not in OFF_PATH), main_path.launches
     assert not any(main_path.plain.values()), main_path.plain

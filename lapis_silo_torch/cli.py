@@ -1,13 +1,17 @@
-"""siloApi-equivalent CLI of the port: --api.
+"""siloApi-equivalent CLI of the port: --preprocessing | --api.
 
-Parity with reference src/silo_api/api.cpp:99-260 (runtime config with
---dataDirectory override). The port serves snapshots; it does not ingest
-yet, so --preprocessing, --worker and --coordinator are refused (exit 2).
+Parity with reference src/silo_api/api.cpp:99-260 (two execution modes,
+layered preprocessing config, runtime config with --dataDirectory
+override). The multi-host modes, --worker and --coordinator, are not in
+this package yet and are refused (exit 2).
 
+  python -m lapis_silo_torch.cli --preprocessing \
+      --preprocessingConfig cfg.yaml --databaseConfig db.yaml
   python -m lapis_silo_torch.cli --api --dataDirectory ./output
 
-Snapshots are served on every visible CUDA card, or on the device that
-SILO_TORCH_DEVICE names (``SILO_TORCH_DEVICE=cpu`` for the CPU).
+Ingest is host work and needs no card. Snapshots are served on every
+visible CUDA card, or on the device that SILO_TORCH_DEVICE names
+(``SILO_TORCH_DEVICE=cpu`` for the CPU).
 """
 
 from __future__ import annotations
@@ -39,6 +43,32 @@ def setup_logging():
     handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
     perf.addHandler(handler)
     perf.propagate = False
+
+
+def handle_preprocessing(args) -> int:
+    from .config.database_config import get_validated_config
+    from .preprocessing.preprocessing_config import read_layered
+    from .preprocessing.preprocessor import Preprocessor
+    from .storage.snapshot import save_database
+
+    pcfg = read_layered(args.preprocessingConfig)
+    database_config_path = args.databaseConfig or os.path.join(
+        pcfg.input_directory, "database_config.yaml"
+    )
+    dbconf = get_validated_config(database_config_path)
+    n_shards = args.ingestShards or 1
+    if n_shards > 1:
+        # multi-process sharded ingest: the metadata pass runs once here,
+        # N worker processes split the sequence compression + index build
+        # by partition (preprocessing/sharded.py)
+        from .preprocessing.sharded import sharded_preprocess
+
+        database = sharded_preprocess(pcfg, dbconf, n_shards)
+    else:
+        database = Preprocessor(pcfg, dbconf).preprocess()
+    path = save_database(database, pcfg.output_directory)
+    logging.getLogger(__name__).info("snapshot written to %s", path)
+    return 0
 
 
 def _graceful_sigterm():
@@ -211,9 +241,16 @@ def main(argv=None) -> int:
     setup_logging()
     parser = argparse.ArgumentParser(prog="lapis-silo-torch")
     parser.add_argument("--api", action="store_true", help="run the HTTP API server")
-    for mode in ("preprocessing", "worker", "coordinator"):
+    parser.add_argument("--preprocessing", action="store_true",
+                        help="ingest input data and write a snapshot")
+    for mode in ("worker", "coordinator"):
         parser.add_argument(f"--{mode}", action="store_true",
                             help="not available in this package yet")
+    parser.add_argument("--preprocessingConfig", default=None)
+    parser.add_argument("--ingestShards", type=int, default=None,
+                        help="split --preprocessing sequence work over N "
+                             "worker processes (NDJSON input only)")
+    parser.add_argument("--databaseConfig", default=None)
     parser.add_argument("--runtimeConfig", default=None)
     parser.add_argument("--dataDirectory", default=None)
     parser.add_argument("--port", type=int, default=None)
@@ -222,13 +259,16 @@ def main(argv=None) -> int:
                              "via SO_REUSEPORT (default 1)")
     args = parser.parse_args(argv)
 
-    for mode in ("preprocessing", "worker", "coordinator"):
+    for mode in ("worker", "coordinator"):
         if getattr(args, mode):
             parser.error(f"--{mode} is not available in lapis_silo_torch yet; "
-                         f"it serves snapshots with --api")
+                         f"it ingests with --preprocessing and serves "
+                         f"snapshots with --api")
+    if args.preprocessing:
+        return handle_preprocessing(args)
     if args.api:
         return handle_api(args)
-    parser.error("specify --api")
+    parser.error("specify --api or --preprocessing")
     return 2
 
 

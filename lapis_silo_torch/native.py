@@ -6,7 +6,10 @@ native/Makefile, into build/native/ of the checkout: the port's own copies,
 so that its builds never race the JAX package's writes into native/, and
 under a file lock, so that processes of the port build one at a time.
 Callers fall back to the numpy implementations when unavailable, so the
-package works (slower) without a compiler.
+package works (slower) without a compiler. The NDJSON scanner always
+builds against the declarations in native_include/zstd.h and the
+libzstd.so.1 this process has loaded, so that it needs no zstd development
+files.
 """
 
 from __future__ import annotations
@@ -28,23 +31,50 @@ _lib = None
 _tried = False
 
 
-def _build_and_load(so_name: str):
-    """`so_name` built from native/ into build/native/ (make is a no-op when
+# native/Makefile's CXXFLAGS, repeated where a build adds to them
+_MAKE_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
+_ZSTD_INCLUDE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "native_include")
+
+
+def _zstd_link_flags(build_dir: str) -> str:
+    """CXXFLAGS that compile against native_include/zstd.h and link the
+    libzstd.so.1 this process has loaded (through a libzstd.so link under
+    `build_dir`)."""
+    from .common import zstd  # noqa: F401 - loads libzstd.so.1
+
+    with open("/proc/self/maps") as maps:
+        loaded = next(line.split()[-1] for line in maps
+                      if os.path.basename(line.split()[-1]).startswith(
+                          "libzstd.so"))
+    link_dir = os.path.join(build_dir, "zstd")
+    os.makedirs(link_dir, exist_ok=True)
+    link = os.path.join(link_dir, "libzstd.so")
+    if os.path.lexists(link):
+        os.unlink(link)
+    os.symlink(loaded, link)
+    return f"CXXFLAGS={_MAKE_CXXFLAGS} -I{_ZSTD_INCLUDE} -L{link_dir}"
+
+
+def _build_and_load(so_name: str, build_dir: str = _BUILD_DIR):
+    """`so_name` built from native/ into `build_dir` (make is a no-op when
     it is fresh) and loaded; None when it cannot be built."""
-    path = os.path.join(_BUILD_DIR, so_name)
+    path = os.path.join(build_dir, so_name)
     if os.path.isdir(_NATIVE_DIR):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, ".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
+                flags = ([_zstd_link_flags(build_dir)]
+                         if so_name == "libsilo_ndjson.so" else [])
                 subprocess.run(
-                    ["make", "-C", _BUILD_DIR, "-f",
+                    ["make", "-C", build_dir, "-f",
                      os.path.join(_NATIVE_DIR, "Makefile"),
-                     f"--eval=vpath %.cpp {_NATIVE_DIR}", so_name],
+                     f"--eval=vpath %.cpp {_NATIVE_DIR}", *flags, so_name],
                     check=True, capture_output=True, timeout=120)
             except Exception as ex:  # noqa: BLE001
-                logger.info("native build unavailable (%s); using numpy "
-                            "fallbacks", ex)
+                logger.info("native build of %s unavailable (%s); using the "
+                            "Python fallbacks", so_name, ex)
             if os.path.exists(path):
                 return ctypes.CDLL(path)
     return None

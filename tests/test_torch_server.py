@@ -11,7 +11,9 @@ The port's watcher installs the port's device engine before a snapshot goes
 live (on the CPU through ``SILO_TORCH_DEVICE=cpu``; with no card and no such
 variable the load fails and the empty database stays), keeps the old
 snapshot on a bad one, and the CLI (``python -m lapis_silo_torch.cli
---api``) starts, answers and exits 0 on SIGTERM. The completion pump answers a batch submitted after it
+--api``) starts, answers and exits 0 on SIGTERM. ``--preprocessing`` of the
+CLI ingests generated files into a snapshot that the JAX package reads and
+``--api`` serves with the JAX package's answers. The completion pump answers a batch submitted after it
 stopped, and a snapshot swap answers the old generation's queued tasks with
 the old snapshot before its table retires. The same server on the card is
 marked `cuda`."""
@@ -452,16 +454,18 @@ def test_swap_answers_queued_tasks_from_the_old_snapshot():
 def test_cli_api_serves_and_exits_on_sigterm(snapshots, tmp_path):
     """python -m lapis_silo_torch.cli --api: the watcher loads the snapshot
     on the device SILO_TORCH_DEVICE names, the server answers, SIGTERM
-    unwinds with exit code 0; the modes this package has not yet refuse
-    with exit code 2."""
+    unwinds with exit code 0; the modes this package has not yet, --worker
+    and --coordinator, refuse with exit code 2."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(REPO), SILO_TORCH_DEVICE="cpu")
-    refused = subprocess.run(
-        [sys.executable, "-m", "lapis_silo_torch.cli", "--preprocessing"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
-    assert refused.returncode == 2
-    assert "not available in lapis_silo_torch" in refused.stderr
+    for mode in ("--worker", "--coordinator"):
+        refused = subprocess.run(
+            [sys.executable, "-m", "lapis_silo_torch.cli", mode],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=120)
+        assert refused.returncode == 2, mode
+        assert "not available in lapis_silo_torch" in refused.stderr
     proc = subprocess.Popen(
         [sys.executable, "-m", "lapis_silo_torch.cli", "--api",
          "--dataDirectory", os.path.dirname(snapshots["port"]),
@@ -480,6 +484,76 @@ def test_cli_api_serves_and_exits_on_sigterm(snapshots, tmp_path):
         assert got is not None, "server never came up"
         assert got[:2] == (200, VERSION)
         assert json.loads(got[2]) == {"queryResult": [{"count": 1500}]}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        proc = None
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+
+
+def test_cli_preprocessing_writes_a_snapshot_the_api_serves(tmp_path):
+    """python -m lapis_silo_torch.cli --preprocessing, run in the input
+    directory (./preprocessing_config.yaml, and database_config.yaml of the
+    input directory), writes a snapshot; the JAX package's load_database
+    reads it and ``--api`` on the CPU serves it, both with the answers of
+    the JAX package's ingest of the same files."""
+    from lapis_silo_tpu.config.database_config import get_validated_config
+    from lapis_silo_tpu.preprocessing.preprocessing_config import (
+        read_preprocessing_config,
+    )
+    from lapis_silo_tpu.preprocessing.preprocessor import Preprocessor
+
+    from .test_torch_ingest import queries
+
+    inputs = testing.write_ingest_inputs(
+        tmp_path / "in", 240, 300, gene_length=40, p_unaligned=0.5, seed=4,
+        intermediate_directory=tmp_path / "inter",
+        output_directory=tmp_path / "out")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), SILO_TORCH_DEVICE="cpu")
+    done = subprocess.run(
+        [sys.executable, "-m", "lapis_silo_torch.cli", "--preprocessing"],
+        cwd=inputs.directory, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert "with the native scanner" in done.stderr or (
+        "with the Python loop" in done.stderr)
+    (version,) = os.listdir(tmp_path / "out")
+    pcfg = read_preprocessing_config(inputs.preprocessing_config)
+    pcfg.intermediate_results_directory = str(tmp_path / "ref_inter")
+    ref = Preprocessor(pcfg, get_validated_config(
+        inputs.database_config)).preprocess()
+    battery = queries(inputs)
+    want = [RefQueryEngine(ref, use_device=False).execute(q) for q in battery]
+    loaded = ref_snapshot.load_database(str(tmp_path / "out" / version))
+    assert loaded.data_version.value == version
+    assert loaded.info() == ref.info()
+    host = RefQueryEngine(loaded, use_device=False)
+    assert [host.execute(q) for q in battery] == want
+
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lapis_silo_torch.cli", "--api",
+         "--dataDirectory", str(tmp_path / "out"), "--port", str(port)],
+        cwd=tmp_path, env=env)
+    try:
+        info = None
+        for _ in range(90):
+            time.sleep(1)
+            try:
+                info = json.loads(_request(port, "GET", "/info")[2])
+            except OSError:  # still starting
+                continue
+            if info["sequenceCount"]:
+                break
+        assert info == ref.info()
+        for query, expected in zip(battery, want):
+            status, got_version, body = _request(port, "POST", "/query",
+                                                 query)
+            assert (status, got_version) == (200, version), query
+            assert json.loads(body) == expected, query
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
         proc = None
