@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one NVIDIA GPU: counts, group-by, Details
-and Mutations through the engine, a snapshot served over HTTP, and input
-files ingested by the port into a snapshot that it serves on the card.
+and Mutations through the engine, a snapshot served over HTTP by one
+process and by a multi-host slice of three, and input files ingested by the
+port into a snapshot that it serves on the card.
 
     python3 chip_smoke.py
 
@@ -48,6 +49,14 @@ Phases, one line each or more (the last line is the JSON verdict):
      queries and one Mutations query, all equal to the host oracle;
      vm_run_sharded and mutation_counts_sharded against their plain versions
      at these shapes, with both times, and the compaction and K9 per shard;
+  8c. on the same shards, lapis_silo_torch.parallel.mesh.ShardedQueryStep:
+     one program's words, count and 64 segment counts (the main segment's
+     start, and a start past the end, clamped) equal to the plain versions
+     on the card and a popcount on the host, its time per call on the card
+     and wall; then parallel.dryrun.dryrun_multichip on 4 shards of the
+     visible cards (its own corpus, the sparse tier forced: counts cold and
+     pool-resident, group-by, Mutations, against the host oracle and a
+     one-device engine; K1, K2, K3, K5 launched, no plain version);
   9. the slice's path: phase 5's corpus saved with the port's save_database
      under build/, loaded by the port's DatabaseDirectoryWatcher (which
      installs the port's engine on the visible cards and warms it up) and
@@ -57,6 +66,22 @@ Phases, one line each or more (the last line is the JSON verdict):
      HTTP, every body equal to the host oracle and /info to db.info(); then
      the native fast path answers the counts with no Python routing; the
      save, load and warm-up seconds and p50 per action;
+  11. the multi-host slice: phase 5's corpus saved by
+     lapis_silo_torch.testing.save_shards as 3 shards under one data
+     version (partitions 0-1, a bank of about 5.9 GB, for the coordinator;
+     2 and 3, about 2.9 GB each, for two workers) under build/; two
+     `python -m lapis_silo_torch.cli --worker` processes and one
+     `--coordinator --workerUrls` over them (each through a thin wrapper
+     around cli.main that records, before the CLI's os._exit, its launches
+     and plain runs since its first committed version, its allocator peak
+     and the jax* / lapis_silo_tpu* modules loaded), all on the one card;
+     once /info counts the whole corpus, phase 9's queries through the
+     coordinator over HTTP, the 64 counts again from 16 threads (the
+     batched fan-out), /info and /info?details=true, every body equal to
+     the host oracle over the whole corpus; per process K1, K2 and K9
+     launched, no plain version, no JAX module; SIGTERM ends each with exit
+     code 0; seconds to the first committed version, p50 per action beside
+     phase 9's, device memory per process (nvidia-smi);
   7. the two-tier deployment, 2,097,152 sequences x 29,903 positions in 8
      partitions, whose all-dense bank (about 23.5 GB) exceeds the 12 GiB
      budget, so the engine builds the CSR sparse tier and the hot-leaf pool:
@@ -91,10 +116,12 @@ Phases, one line each or more (the last line is the JSON verdict):
      save, load+install and warm-up seconds and p50 per action, beside the
      card's name
      and power limit;
-  6. assertions: every kernel launched during phases 4, 5, 7, 8, 9 and 10
-     (but popcount_rows_and_filter, which no engine path calls) and no plain
-     version ran there, K1, K2 and K9 launched in phase 10, no module of
-     jax* or lapis_silo_tpu* was loaded, the device path stayed on.
+  6. assertions: every kernel launched during phases 4, 5, 7, 8, 9, 10 and
+     11 (phase 11's counts come from its three processes; but
+     popcount_rows_and_filter, which no engine path calls) and no plain
+     version ran there, K1, K2 and K9 launched in phase 10 and in each
+     process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
+     the device path stayed on.
 
 Each main-path phase runs with the launch counts set to 0 just before it and
 read just after; the comparisons between phases are not counted. There is no
@@ -114,6 +141,7 @@ import http.client as http_client
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -265,6 +293,13 @@ class MainPath:
         for k in self.kernels.KERNELS:
             self.launches[k.name] += k.launches
             self.plain[k.name] += k.plain_launches
+
+    def add(self, launches: dict, plain: dict) -> None:
+        """Counts of a main-path run in another process (phase 11's
+        hosts), by kernel name."""
+        for name in self.launches:
+            self.launches[name] += launches[name]
+            self.plain[name] += plain[name]
 
 
 def oracle(db, queries: list[str]) -> list[dict]:
@@ -1044,8 +1079,67 @@ def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
         assert kernels.VM_RUN_SHARDED.launches > 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches > 0
         assert kernels.GROUP_COUNTS.launches > 0
+    phase8c(main, kernels, torch, engine, lowered[3])
     del engine
     detach(db, torch)
+
+
+def phase8c(main: MainPath, kernels, torch, engine, program) -> None:
+    """ShardedQueryStep over the sharded engine's four [89,709, 8,192]
+    banks: one program of the wide batch, its words, count and 64 segment
+    counts against the plain versions on the card and a popcount on the
+    host, for the main segment's start and a start past the end (clamped);
+    its time per call on the card and wall. Then dryrun_multichip on 4
+    shards of the visible cards."""
+    from lapis_silo_torch.ops import vm
+    from lapis_silo_torch.parallel.dryrun import dryrun_multichip
+    from lapis_silo_torch.parallel.mesh import ShardedQueryStep
+
+    code, _n, banks, dyns, _rows, fulls, _regs, _seg = engine.kernel_inputs(
+        engine._prepare_program(program))
+    code = np.ascontiguousarray(code.numpy())
+    step = ShardedQueryStep(engine.shards.devices, engine.n_flat_words)
+    n_rows = banks[0].shape[0]
+    starts = (engine.segment_meta[("nuc", "main")]["offset"], n_rows + 10)
+    with main.phase():
+        step(code, banks, dyns, fulls, starts[0])
+        assert kernels.VM_RUN_SHARDED.launches == 1
+        assert kernels.MUTATION_COUNTS_SHARDED.launches == 1
+    for start in starts:
+        words, count, muts = step(code, banks, dyns, fulls, start)
+        plain_words, _emits = kernels.vm_run_sharded_plain(
+            torch.from_numpy(code), code.shape[1], banks, dyns,
+            step._no_sparse, fulls, vm.MAX_REGS)
+        plain_muts = kernels.mutation_counts_sharded_plain(
+            banks, plain_words, min(start, n_rows - 64), 64)
+        assert all(max_abs_err(a, b) == 0 for a, b in zip(words, plain_words))
+        assert max_abs_err(muts, plain_muts) == 0
+        host = np.concatenate([w.cpu().numpy() for w in words]).view(np.uint32)
+        clamped = min(start, n_rows - 64)
+        rows = np.concatenate([b[clamped: clamped + 64].cpu().numpy()
+                               for b in banks], axis=1).view(np.uint32)
+        assert int(count) == int(np.unpackbits(host.view(np.uint8)).sum())
+        assert np.array_equal(muts.cpu().numpy(), np.unpackbits(
+            (rows & host[None, :]).view(np.uint8), axis=1).sum(axis=1))
+    ms = cuda_ms(lambda: step(code, banks, dyns, fulls, starts[0]), reps=20)
+    wall = wall_ms(lambda: step(code, banks, dyns, fulls, starts[0]), reps=20)
+    log("8c step", f"ShardedQueryStep over {len(banks)} shards "
+        f"{tuple(banks[0].shape)}, a {code.shape[1]}-instruction program, "
+        f"segment starts {starts} (the second clamped to {n_rows - 64}): "
+        f"words, count {int(count)} and 64 segment counts equal the plain "
+        f"versions on the card and a popcount on the host; {ms:.4f} ms per "
+        f"call on the card, {wall:.4f} ms wall; {nvidia_smi()}")
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device(DEVICE, d % n_cards) for d in range(N_SHARDS)]
+    t0 = time.perf_counter()
+    with main.phase():
+        report = dryrun_multichip(devices)
+    log("8c dryrun", f"dryrun_multichip on {report['devices']}: "
+        f"{report['counts']} counts cold and hot (pool {report['pool_slots']} "
+        f"slots, {report['pool_hits']} hits, {report['pool_misses']} misses), "
+        f"group-by and Mutations bit-exact against the host oracle and a "
+        f"one-device engine in {time.perf_counter() - t0:.1f} s; launches "
+        f"(kernel, plain) {report['launches']}")
 
 
 def phase8b(main: MainPath, kernels, torch, answers: dict,
@@ -1151,6 +1245,229 @@ def phase9(main: MainPath, kernels, torch, db, answers: dict) -> dict:
     del engine
     detach(served, torch)
     shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
+# runs the port's CLI main (--worker or --coordinator) in a subprocess; just
+# before the CLI leaves through os._exit it writes, as JSON into the file
+# its first argument names, its kernels' launches and plain-version runs
+# since its first committed version, its peak device memory and the modules
+# of jax* and lapis_silo_tpu* loaded
+HOST_WRAPPER = """
+import json, sys, time
+import torch
+from lapis_silo_torch import cli
+from lapis_silo_torch.ops import kernels
+from lapis_silo_torch.parallel import multihost
+report, t0 = sys.argv[1], time.perf_counter()
+committed = {}
+commit, graceful_exit = multihost.StagedSnapshotWatcher.commit, cli._graceful_exit
+
+def counts():
+    return {k.name: [k.launches, k.plain_launches] for k in kernels.KERNELS}
+
+def recording_commit(self, version):
+    done = commit(self, version)
+    if done and not committed:
+        committed.update(counts=counts(), s=time.perf_counter() - t0)
+    return done
+
+def recording_exit():
+    now = counts()
+    since = committed.get("counts", {n: [0, 0] for n in now})
+    with open(report, "w") as f:
+        json.dump({"launches": {n: now[n][0] - since[n][0] for n in now},
+                   "plain": {n: now[n][1] - since[n][1] for n in now},
+                   "commit_s": committed.get("s"),
+                   "peak_bytes": torch.cuda.max_memory_allocated()
+                   if torch.cuda.is_available() else 0,
+                   "banned": sorted(m for m in sys.modules if m.split(".")[0]
+                                    in ("jax", "jaxlib", "lapis_silo_tpu"))},
+                  f)
+    graceful_exit()
+
+multihost.StagedSnapshotWatcher.commit = recording_commit
+cli._graceful_exit = recording_exit
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def start_host(base: Path, label: str, argv: list[str]):
+    """One host of phase 11's slice: the port's CLI through HOST_WRAPPER,
+    serving on the visible card (SILO_TORCH_DEVICE and SILO_HTTP_IMPL
+    unset). Returns (process, report path, log path)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SILO_TORCH_DEVICE", "SILO_HTTP_IMPL", "PYTHONPATH")}
+    env["PYTHONPATH"] = str(ROOT)
+    report, log_path = base / f"{label}.json", base / f"{label}.log"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", HOST_WRAPPER, str(report), *argv],
+            cwd=base, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, report, log_path
+
+
+def slice_memory(procs: dict) -> str:
+    """Device memory per host process as nvidia-smi lists it (none where
+    it cannot see the processes' ids), and the card's memory in use by
+    every process."""
+    def query(*args):
+        return subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout.splitlines()
+
+    used = dict(line.split(", ", 1)
+                for line in query("--query-compute-apps=pid,used_memory")
+                if ", " in line)
+    return "; ".join(f"{label} {used.get(str(proc.pid), 'not listed')}"
+                     for label, (proc, _r, _l) in procs.items()) + (
+        f"; the card's memory.used {query('--query-gpu=memory.used')[0]}")
+
+
+def timed_post(port: int, path: str, body: str) -> tuple[float, int, int]:
+    """(ms, status, body bytes) of one POST, its body read whole."""
+    t0 = time.perf_counter()
+    conn = http_client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return (time.perf_counter() - t0) * 1e3, resp.status, len(data)
+
+
+def phase11(main: MainPath, kernels, torch, db, answers: dict,
+            single_p50: dict) -> dict:
+    """The multi-host slice on the card through the port's CLI: phase 5's
+    corpus in 3 shards saved under one data version (the coordinator's
+    partitions 0-1, worker A's 2, worker B's 3), two --worker processes
+    and one --coordinator over them, each serving its shard on the visible
+    card; phase 9's queries through the coordinator over HTTP, every body
+    equal to the host oracle over the whole corpus, and /info and
+    /info?details=true to the whole database's; per host, K1, K2 and K9
+    launched after its first committed version, no plain version ran and
+    no module of jax* or lapis_silo_tpu* loaded; SIGTERM ends each with
+    exit code 0. Returns the seconds to the first committed version and
+    the p50 per action."""
+    from lapis_silo_torch.storage.database import DataVersion
+    from lapis_silo_torch.testing import save_shards, shard_database
+
+    base = ROOT / "build" / "smoke_slice"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    version = "1700000011"
+    groups = ([0, 1], [2], [3])
+    dirs = [base / name for name in ("coordinator", "worker_a", "worker_b")]
+    t0 = time.perf_counter()
+    save_shards(db, groups, [d / "data" for d in dirs], version)
+    out = {"save_s": time.perf_counter() - t0}
+    log("11 setup", f"{db.info()['sequenceCount']} sequences saved as 3 "
+        f"shards (partitions {list(groups)}) under data version {version} "
+        f"in {out['save_s']:.1f} s")
+    ports = [free_port() for _ in dirs]
+    urls = [f"http://127.0.0.1:{port}" for port in ports[1:]]
+    procs = {}
+    t_start = time.perf_counter()
+    for label, d, port in zip(("worker_a", "worker_b"), dirs[1:], ports[1:]):
+        procs[label] = start_host(d, label, [
+            "--worker", "--dataDirectory", str(d / "data"), "--port",
+            str(port)])
+    procs["coordinator"] = start_host(dirs[0], "coordinator", [
+        "--coordinator", "--workerUrls", ",".join(urls), "--dataDirectory",
+        str(dirs[0] / "data"), "--port", str(ports[0])])
+    port = ports[0]
+    try:
+        want_info = db.info()
+        deadline = time.time() + 600
+        while True:
+            for label, (proc, _r, log_path) in procs.items():
+                if proc.poll() is not None:
+                    print(log_path.read_text()[-4000:], flush=True)
+                    raise SystemExit(f"11: {label} exited {proc.returncode}")
+            try:
+                status, got_version, info = http(port, "GET", "/info")
+            except OSError:  # still starting
+                info = None
+            if info is not None and status == 200 and (
+                    info["sequenceCount"] == want_info["sequenceCount"]):
+                break
+            assert time.time() < deadline, "the slice never committed"
+            time.sleep(0.5)
+        out["first_version_s"] = time.perf_counter() - t_start
+        assert (info, got_version) == (want_info, version), info
+        status, got_version, detailed = http(port, "GET",
+                                             "/info?details=true")
+        assert (status, got_version) == (200, version)
+        assert detailed == db.detailed_info()
+        log("11 up", f"2 workers and the coordinator committed version "
+            f"{version} {out['first_version_s']:.1f} s after start; /info "
+            f"and /info?details=true equal the whole database's; "
+            f"{nvidia_smi()}")
+        # the slice's version, not the whole database's, heads the answers
+        shard = shard_database(db, groups[0])
+        shard.data_version = DataVersion(version)
+        p50 = serve_checks(port, shard, db, answers, "11 slice",
+                           "; through the coordinator over 2 workers")
+        # where a Mutations query's time goes: the coordinator's answer
+        # against one worker's partial alone (its K2 and the count
+        # matrices' frame over HTTP), each query three times
+        out["mutations_ms"] = [
+            {"coordinator": [timed_post(port, "/query", q)[0]
+                             for _ in range(3)],
+             "worker_partial": [timed_post(ports[1], "/internal/partial", q)
+                                for _ in range(3)]}
+            for q in answers["Mutations"][0]]
+        log("11 mutations", f"per Mutations query, 3 times each: ms through "
+            f"the coordinator, and (ms, status, bytes) of worker A's "
+            f"/internal/partial alone {out['mutations_ms']}")
+        counts, want = answers["counts"]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            got = list(pool.map(
+                lambda q: http(port, "POST", "/query", q), counts))
+        pooled_s = time.perf_counter() - t0
+        assert got == [(200, version, w) for w in want]
+        out["memory"] = slice_memory(procs)
+        for label, (proc, _r, _l) in procs.items():
+            proc.send_signal(signal.SIGTERM)
+        codes = {label: proc.wait(timeout=120)
+                 for label, (proc, _r, _l) in procs.items()}
+        assert codes == {label: 0 for label in procs}, codes
+    finally:
+        for proc, _r, _l in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    reports = {label: json.loads(report.read_text())
+               for label, (_p, report, _l) in procs.items()}
+    for label, report in reports.items():
+        for name in ("vm_run", "mutation_counts", "group_counts"):
+            assert report["launches"][name] > 0, (label, name)
+        assert not any(report["plain"].values()), (label, report["plain"])
+        assert report["banned"] == [], (label, report["banned"])
+        main.add(report["launches"], report["plain"])
+    out["p50"] = p50
+    log("11 done", f"64 counts again from 16 threads through the "
+        f"coordinator's batched fan-out equal the host oracle in "
+        f"{pooled_s * 1e3:.1f} ms; p50 per action through the coordinator "
+        f"{ {a: round(v, 3) for a, v in p50.items()} } ms against phase 9's "
+        f"single native host { {a: round(v, 3) for a, v in single_p50.items() if a in p50} } "
+        f"ms; device memory per process (nvidia-smi) {out['memory']}; "
+        f"allocator peak per process "
+        f"{ {k: round(r['peak_bytes'] / 1e9, 2) for k, r in reports.items()} } "
+        f"GB; launches since each host's first commit "
+        f"{ {k: {n: v for n, v in r['launches'].items() if v} for k, r in reports.items()} }; "
+        f"every process exited 0 on SIGTERM; {nvidia_smi()}")
+    shutil.rmtree(base, ignore_errors=True)
     return out
 
 
@@ -1625,9 +1942,13 @@ def main() -> int:
     # 8a: the same corpus on the word-sharded engine
     phase8a(main_path, kernels, torch, big, big_answers, err, timings)
     # 9: the same corpus as a snapshot, served over HTTP
-    served = phase9(main_path, kernels, torch, big,
-                    {**big_answers, "Details": (big_answers["Details"][0][:1],
-                                                big_answers["Details"][1][:1])})
+    served_answers = {**big_answers,
+                      "Details": (big_answers["Details"][0][:1],
+                                  big_answers["Details"][1][:1])}
+    served = phase9(main_path, kernels, torch, big, served_answers)
+    # 11: the same corpus served by a multi-host slice through the CLI
+    sliced = phase11(main_path, kernels, torch, big, served_answers,
+                     served.get("native", served["python"]))
     del big
     gc.collect()
 
@@ -1649,7 +1970,8 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.0f} s")
     log("6 summary", "compaction (torch ops, no kernel) "
         + json.dumps(compaction) + "; phase 9 " + json.dumps(served)
-        + "; phase 10 " + json.dumps(ingested))
+        + "; phase 10 " + json.dumps(ingested) + "; phase 11 "
+        + json.dumps(sliced))
     assert all(n for name, n in main_path.launches.items()
                if name not in OFF_PATH), main_path.launches
     assert not any(main_path.plain.values()), main_path.plain

@@ -15,6 +15,9 @@ that ``SILO_TORCH_DEVICE`` names):
 
     python -m lapis_silo_torch.cli --api --dataDirectory ./output
 
+Its ``--worker`` and ``--coordinator`` modes serve one corpus from several
+hosts, each with its own partitions (``parallel/multihost.py``).
+
 As a library:
 
     from lapis_silo_torch.testing import synthetic_database

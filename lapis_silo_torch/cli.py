@@ -1,13 +1,20 @@
-"""siloApi-equivalent CLI of the port: --preprocessing | --api.
+"""siloApi-equivalent CLI of the port: --preprocessing | --api | --worker |
+--coordinator.
 
 Parity with reference src/silo_api/api.cpp:99-260 (two execution modes,
 layered preprocessing config, runtime config with --dataDirectory
-override). The multi-host modes, --worker and --coordinator, are not in
-this package yet and are refused (exit 2).
+override), plus the JAX package's multi-host modes: a --worker serves its
+shard's snapshots on /internal/* (port 8082 by default), and the
+--coordinator answers the public /query and /info over its --workerUrls and
+its own shard, flipping all hosts to a new snapshot version together
+(parallel/multihost.py).
 
   python -m lapis_silo_torch.cli --preprocessing \
       --preprocessingConfig cfg.yaml --databaseConfig db.yaml
   python -m lapis_silo_torch.cli --api --dataDirectory ./output
+  python -m lapis_silo_torch.cli --worker --dataDirectory ./shard1 --port 8082
+  python -m lapis_silo_torch.cli --coordinator --dataDirectory ./shard0 \
+      --workerUrls http://host1:8082,http://host2:8082
 
 Ingest is host work and needs no card. Snapshots are served on every
 visible CUDA card, or on the device that SILO_TORCH_DEVICE names
@@ -237,15 +244,108 @@ def _supervise_api(args, n_procs: int) -> int:
     return 0
 
 
+def handle_worker(args) -> int:
+    """One host of a slice: serves /internal/* (partials, version, commit)
+    over its shard's data directory; snapshot versions go live only when
+    the coordinator's FlipController commits them."""
+    import time
+
+    from .parallel.multihost import start_replicated_worker
+    from .server.runtime_config import RuntimeConfig
+
+    _graceful_sigterm()
+
+    runtime = RuntimeConfig.read(args.runtimeConfig)
+    if args.dataDirectory:
+        runtime.data_directory = args.dataDirectory
+    port = args.port or 8082
+    server = watcher = None
+    try:
+        server, watcher, _mutex = start_replicated_worker(
+            runtime.data_directory, port)
+        logging.getLogger(__name__).info(
+            "worker on :%d, staging snapshots from %s", port,
+            runtime.data_directory)
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        _TERM_OBSERVED[0] = True  # SIGINT carries the same follow-up hazard
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        if server is not None:
+            server.shutdown()
+    _graceful_exit()
+    return 0
+
+
+def handle_coordinator(args) -> int:
+    """The slice's front end: public /query + /info fan out to the workers
+    (plus this host's own shard from its data directory); the embedded
+    FlipController keeps all hosts on one snapshot version."""
+    from .parallel.multihost import (
+        Coordinator,
+        FlipController,
+        StagedSnapshotWatcher,
+    )
+    from .server.http_server import DatabaseMutex, make_coordinator_server
+    from .server.runtime_config import RuntimeConfig
+
+    _graceful_sigterm()
+
+    worker_urls = [u.strip() for u in (args.workerUrls or "").split(",")
+                   if u.strip()]
+    if not worker_urls:
+        raise SystemExit("--coordinator requires --workerUrls url1,url2,...")
+    runtime = RuntimeConfig.read(args.runtimeConfig)
+    if args.dataDirectory:
+        runtime.data_directory = args.dataDirectory
+    if args.port:
+        runtime.port = args.port
+
+    mutex = DatabaseMutex()
+    local_watcher = controller = server = None
+    try:
+        if runtime.data_directory:
+            local_watcher = StagedSnapshotWatcher(runtime.data_directory, mutex)
+            local_watcher.start()
+        controller = FlipController(worker_urls, local_watcher=local_watcher)
+        controller.start()
+        coordinator = Coordinator(mutex, worker_urls,
+                                  include_local=local_watcher is not None)
+        server = make_coordinator_server(coordinator, runtime.port)
+        logging.getLogger(__name__).info(
+            "coordinator on :%d over %d workers%s", runtime.port,
+            len(worker_urls),
+            f" + local shard {runtime.data_directory}" if local_watcher else "")
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _TERM_OBSERVED[0] = True  # SIGINT carries the same follow-up hazard
+    finally:
+        if controller is not None:
+            controller.stop()
+        if local_watcher is not None:
+            local_watcher.stop()
+        if server is not None:
+            server.server_close()
+    _graceful_exit()
+    return 0
+
+
 def main(argv=None) -> int:
     setup_logging()
     parser = argparse.ArgumentParser(prog="lapis-silo-torch")
     parser.add_argument("--api", action="store_true", help="run the HTTP API server")
     parser.add_argument("--preprocessing", action="store_true",
                         help="ingest input data and write a snapshot")
-    for mode in ("worker", "coordinator"):
-        parser.add_argument(f"--{mode}", action="store_true",
-                            help="not available in this package yet")
+    parser.add_argument("--worker", action="store_true",
+                        help="run a multi-host shard worker (staged hot reload, "
+                             "flips committed by the coordinator)")
+    parser.add_argument("--coordinator", action="store_true",
+                        help="run the multi-host coordinator: public /query + "
+                             "/info over all workers (and this host's own shard)")
+    parser.add_argument("--workerUrls", default=None,
+                        help="comma-separated worker base URLs (coordinator mode)")
     parser.add_argument("--preprocessingConfig", default=None)
     parser.add_argument("--ingestShards", type=int, default=None,
                         help="split --preprocessing sequence work over N "
@@ -259,16 +359,15 @@ def main(argv=None) -> int:
                              "via SO_REUSEPORT (default 1)")
     args = parser.parse_args(argv)
 
-    for mode in ("worker", "coordinator"):
-        if getattr(args, mode):
-            parser.error(f"--{mode} is not available in lapis_silo_torch yet; "
-                         f"it ingests with --preprocessing and serves "
-                         f"snapshots with --api")
     if args.preprocessing:
         return handle_preprocessing(args)
     if args.api:
         return handle_api(args)
-    parser.error("specify --api or --preprocessing")
+    if args.worker:
+        return handle_worker(args)
+    if args.coordinator:
+        return handle_coordinator(args)
+    parser.error("specify --api, --preprocessing, --worker or --coordinator")
     return 2
 
 

@@ -112,26 +112,35 @@ class QueryEngine:
         except _HOST_FALLBACK:
             return None
 
-    def _try_fast_count(self, query: Query) -> dict | None:
-        """Aggregated on the device engine: counts without group-by go
-        through the micro-batcher; group-by takes the host path while the
-        device engine's group_counts returns None."""
+    def _device_rows(self, query: Query) -> list[dict] | None:
+        """Aggregated on the device engine, its rows unsorted and unsliced:
+        a count through the micro-batcher, group-by through group_counts.
+        None where the host answers: another action, no device engine,
+        columns group_counts does not take, or a filter the port's lowering
+        refuses. A multi-host partial takes these rows as they are
+        (parallel/multihost.py); ``_try_fast_count`` orders and slices."""
         action = query.action
         if not (self._use_device and isinstance(action, Aggregated)):
             return None
+        action.validate_order_by(self.database)
         try:
-            action.validate_order_by(self.database)
             if action.group_by_fields:
                 groups = self._device_engine.group_counts(
                     query.filter, action.group_by_fields)
                 if groups is None:
                     return None
-                rows = action.rows_from_group_counts(self.database, groups)
-            else:
-                rows = [{"count": self._device_engine.count_coalesced(
-                    query.filter, key=query.filter_key)}]
+                return action.rows_from_group_counts(self.database, groups)
+            return [{"count": self._device_engine.count_coalesced(
+                query.filter, key=query.filter_key)}]
         except _HOST_FALLBACK:
             return None
+
+    def _try_fast_count(self, query: Query) -> dict | None:
+        """The device rows of ``_device_rows``, ordered and sliced."""
+        rows = self._device_rows(query)
+        if rows is None:
+            return None
+        action = query.action
         if action.offset is not None and action.offset >= len(rows):
             return {"queryResult": []}
         action._apply_sort(rows)

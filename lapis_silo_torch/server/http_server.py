@@ -7,12 +7,13 @@ bodies, and the reader/writer snapshot swap (DatabaseMutex).
 Two interchangeable front-ends serve the same router (server/router.py):
 the native epoll server (native/silo_http.cpp, the default — the reference's
 API layer is native too) and this pure-Python http.server fallback.
-make_server() picks automatically; set
+make_server()/make_coordinator_server() pick automatically; set
 SILO_HTTP_IMPL=python|native to force one.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -20,7 +21,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..storage.database import Database
-from .router import DatabaseBackend, route_request
+from .router import CoordinatorBackend, DatabaseBackend, route_request
 
 logger = logging.getLogger(__name__)
 
@@ -65,8 +66,9 @@ class SiloRequestHandler(BaseHTTPRequestHandler):
     server_version = "lapis-silo-tpu"
     disable_nagle_algorithm = True
 
-    # set by make_server
-    backend = None
+    # set by _python_server: router(method, target, body) -> (status,
+    # payload, data_version | None)
+    router = None
 
     def log_message(self, fmt, *args):  # route to logging, not stderr
         logger.info("%s %s", self.address_string(), fmt % args)
@@ -74,11 +76,17 @@ class SiloRequestHandler(BaseHTTPRequestHandler):
     def _handle(self):
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
-        status, payload, data_version = route_request(
-            self.backend, self.command, self.path, body)
-        encoded = json.dumps(payload, ensure_ascii=False).encode("utf-8")
+        status, payload, data_version = self.router(
+            self.command, self.path, body)
+        # bytes payloads pass through untouched (binary partial frames on
+        # the multi-host control plane); the rest is JSON
+        if isinstance(payload, (bytes, bytearray)):
+            encoded, ctype = bytes(payload), "application/octet-stream"
+        else:
+            encoded = json.dumps(payload, ensure_ascii=False).encode("utf-8")
+            ctype = "application/json"
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(encoded)))
         if data_version is not None:
             self.send_header("data-version", data_version)
@@ -94,10 +102,12 @@ class SiloRequestHandler(BaseHTTPRequestHandler):
     do_HEAD = _handle
 
 
-def _python_server(backend, port: int,
-                   reuse_port: bool = False) -> ThreadingHTTPServer:
+def _python_server(backend, port: int, reuse_port: bool = False,
+                   router=None) -> ThreadingHTTPServer:
+    if router is None:
+        router = functools.partial(route_request, backend)
     handler = type("BoundSiloRequestHandler", (SiloRequestHandler,),
-                   {"backend": backend})
+                   {"router": staticmethod(router)})
     server_cls = SiloHTTPServer
     if reuse_port:
         server_cls = type("ReusePortSiloHTTPServer", (SiloHTTPServer,),
@@ -105,19 +115,29 @@ def _python_server(backend, port: int,
     return server_cls(("0.0.0.0", port), handler)
 
 
-def _make(backend, port: int, reuse_port: bool = False):
+def _make(backend, port: int, reuse_port: bool = False, router=None):
+    """The server SILO_HTTP_IMPL picks, answering through `router` (by
+    default route_request over `backend`; the multi-host worker passes its
+    control plane's router and no backend)."""
     impl = os.environ.get("SILO_HTTP_IMPL", "native")
     if impl != "python":
         from .native_http import NativeHTTPServer, native_http_available
 
         if native_http_available():
-            return NativeHTTPServer(backend, port=port, reuse_port=reuse_port)
+            return NativeHTTPServer(backend, port=port, router=router,
+                                    reuse_port=reuse_port)
         if impl == "native":
             logger.warning("native HTTP library unavailable; "
                            "falling back to the Python server")
-    return _python_server(backend, port, reuse_port=reuse_port)
+    return _python_server(backend, port, reuse_port=reuse_port, router=router)
 
 
 def make_server(database_mutex: DatabaseMutex, port: int = 8081,
                 reuse_port: bool = False):
     return _make(DatabaseBackend(database_mutex), port, reuse_port=reuse_port)
+
+
+def make_coordinator_server(coordinator, port: int = 8081):
+    """The same public /query + /info protocol, answered by a multi-host
+    Coordinator (fan-out + merge) instead of a local database."""
+    return _make(CoordinatorBackend(coordinator), port)

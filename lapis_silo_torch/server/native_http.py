@@ -67,14 +67,25 @@ _FALLBACK_500 = json.dumps(
 
 
 class NativeHTTPServer:
-    """Epoll HTTP server fronting a backend (server/router.py
-    DatabaseBackend), routed through route_request."""
+    """Epoll HTTP server fronting a router: either a backend object
+    (server/router.py DatabaseBackend | CoordinatorBackend, routed through
+    route_request) or a callable `router(method, target, body) ->
+    (status, payload, data_version | None)` for custom protocols (the
+    multi-host worker control plane, parallel/multihost.py). A payload of
+    bytes goes out as it is; any other payload as JSON."""
 
-    def __init__(self, backend, port: int = 8081,
-                 n_workers: int | None = None, reuse_port: bool = False):
+    def __init__(self, backend=None, port: int = 8081,
+                 n_workers: int | None = None, router=None,
+                 reuse_port: bool = False):
         lib = _get_lib()
         if lib is None:
             raise RuntimeError("native HTTP library unavailable")
+        if router is None:
+            if backend is None:
+                raise ValueError("need a backend or a router")
+
+            def router(method, target, body):
+                return route_request(backend, method, target, body)
         self._lib = lib
         self._stopped = threading.Event()
         if n_workers is None:
@@ -92,10 +103,15 @@ class NativeHTTPServer:
                         if body_len else b"")
                 method_s = method.decode("ascii", "replace")
                 target_s = target.decode("utf-8", "replace")
-                status, payload, data_version = route_request(
-                    backend, method_s, target_s, body)
-                encoded = json.dumps(
-                    payload, ensure_ascii=False).encode("utf-8")
+                status, payload, data_version = router(
+                    method_s, target_s, body)
+                # bytes payloads pass through untouched (binary partial
+                # frames on the multi-host control plane); the rest is JSON
+                if isinstance(payload, (bytes, bytearray)):
+                    encoded = bytes(payload)
+                else:
+                    encoded = json.dumps(
+                        payload, ensure_ascii=False).encode("utf-8")
                 lib.silo_http_respond(
                     req, status, encoded, len(encoded),
                     data_version.encode("ascii") if data_version is not None
@@ -123,9 +139,13 @@ class NativeHTTPServer:
         if self._id < 0:
             raise OSError(f"could not bind native HTTP server on port {port}")
         self.server_address = ("0.0.0.0", lib.silo_http_port(self._id))
-        from .fastpath import CountFastPath
+        # the count fast path answers from a database mutex: a router, or
+        # a coordinator's backend, has none
+        mutex = getattr(backend, "database_mutex", None)
+        if mutex is not None:
+            from .fastpath import CountFastPath
 
-        self._fastpath = CountFastPath(lib, self._id, backend.database_mutex)
+            self._fastpath = CountFastPath(lib, self._id, mutex)
         # C++ workers must never call back into a finalizing interpreter:
         # stop (and join) the native threads before Python tears down.
         import atexit

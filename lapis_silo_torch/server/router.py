@@ -26,7 +26,7 @@ class DatabaseBackend:
     def __init__(self, database_mutex):
         self._mutex = database_mutex
         # exposed so the native server's count fast path (server/fastpath.py)
-        # can track snapshot swaps
+        # can track snapshot swaps; CoordinatorBackend deliberately has none
         self.database_mutex = database_mutex
 
     def resolve(self):
@@ -50,6 +50,34 @@ class _DatabaseView:
         return self._database.data_version.value
 
 
+class CoordinatorBackend:
+    """The same protocol answered by a multi-host Coordinator (fan-out +
+    merge, parallel/multihost.py). The data-version is the slice's
+    consistent version."""
+
+    def __init__(self, coordinator):
+        self._coordinator = coordinator
+
+    def resolve(self):
+        return _CoordinatorView(self._coordinator)
+
+
+class _CoordinatorView:
+    def __init__(self, coordinator):
+        self._coordinator = coordinator
+
+    def info(self, detailed: bool, tpu: bool) -> dict:
+        return (self._coordinator.detailed_info() if detailed
+                else self._coordinator.info())
+
+    def execute_query(self, query: str) -> dict:
+        return self._coordinator.execute_query(query)
+
+    @property
+    def data_version(self) -> str:
+        return self._coordinator.database.data_version.value
+
+
 def _not_found(path: str):
     return 404, {"error": "Not found",
                  "message": f"Resource {path} does not exist"}, None
@@ -65,7 +93,7 @@ def _method_not_allowed(method: str, path: str):
 def route_request(backend, method: str, target: str, body: bytes):
     """(status, payload dict, data-version | None) for one HTTP request.
 
-    `backend` is a DatabaseBackend; a snapshot is
+    `backend` is a DatabaseBackend or CoordinatorBackend; a snapshot is
     resolved per request so info/query and the data-version header always
     come from the same version (the watcher may swap mid-flight)."""
     parsed = urlparse(target)

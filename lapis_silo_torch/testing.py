@@ -317,6 +317,42 @@ def hot_count_queries(db: Database, positions, n_queries: int,
     return out
 
 
+# -- multi-host shards --------------------------------------------------------
+
+
+def shard_database(db: Database, partition_ids) -> Database:
+    """A Database holding a subset of `db`'s partitions: the same config,
+    dictionaries, reference genomes and data version, and the partitions'
+    own unaligned stores, which is what each host of a multi-host slice
+    loads (the reference tests' ``_shard_database``,
+    ``tests/test_multihost.py:16-28``). The partitions are shared, not
+    copied."""
+    shard = Database(db.config, db.alias_key, db.reference_genomes)
+    shard.dictionaries = db.dictionaries
+    shard.partitions = [db.partitions[i] for i in partition_ids]
+    shard.unaligned_nuc_sequences = {
+        name: [stores[i] for i in partition_ids]
+        for name, stores in db.unaligned_nuc_sequences.items()
+    }
+    shard.data_version = db.data_version
+    return shard
+
+
+def save_shards(db: Database, groups, directories, version: str) -> list[str]:
+    """Each group of partition ids of `db` saved as a shard by the port's
+    ``save_database`` into its directory of `directories`, all under the
+    one data version `version` (a FlipController commits only a version
+    that every host holds). Returns the snapshots' paths."""
+    from .storage.snapshot import save_database
+
+    paths = []
+    for partition_ids, directory in zip(groups, directories, strict=True):
+        shard = shard_database(db, partition_ids)
+        shard.data_version = DataVersion(version)
+        paths.append(save_database(shard, str(directory)))
+    return paths
+
+
 # -- ingest inputs -----------------------------------------------------------
 
 # pango lineages and their shares: with partitionBy on this column, the

@@ -454,18 +454,18 @@ def test_swap_answers_queued_tasks_from_the_old_snapshot():
 def test_cli_api_serves_and_exits_on_sigterm(snapshots, tmp_path):
     """python -m lapis_silo_torch.cli --api: the watcher loads the snapshot
     on the device SILO_TORCH_DEVICE names, the server answers, SIGTERM
-    unwinds with exit code 0; the modes this package has not yet, --worker
-    and --coordinator, refuse with exit code 2."""
+    unwinds with exit code 0; with no mode the CLI refuses with exit code 2
+    and names the four (tests/test_torch_coordinator.py runs --worker and
+    --coordinator)."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(REPO), SILO_TORCH_DEVICE="cpu")
-    for mode in ("--worker", "--coordinator"):
-        refused = subprocess.run(
-            [sys.executable, "-m", "lapis_silo_torch.cli", mode],
-            cwd=tmp_path, env=env, capture_output=True, text=True,
-            timeout=120)
-        assert refused.returncode == 2, mode
-        assert "not available in lapis_silo_torch" in refused.stderr
+    refused = subprocess.run(
+        [sys.executable, "-m", "lapis_silo_torch.cli"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert refused.returncode == 2
+    assert ("specify --api, --preprocessing, --worker or --coordinator"
+            in refused.stderr)
     proc = subprocess.Popen(
         [sys.executable, "-m", "lapis_silo_torch.cli", "--api",
          "--dataDirectory", os.path.dirname(snapshots["port"]),
