@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one NVIDIA GPU: counts, group-by, Details
-and Mutations through the engine, a snapshot served over HTTP by one
-process and by a multi-host slice of three, and input files ingested by the
-port into a snapshot that it serves on the card.
+and Mutations through the engine, the query step across processes, a
+snapshot served over HTTP by one process and by a multi-host slice of
+three, and input files ingested by the port into a snapshot that it serves
+on the card.
 
     python3 chip_smoke.py
 
@@ -57,6 +58,18 @@ Phases, one line each or more (the last line is the JSON verdict):
      visible cards (its own corpus, the sparse tier forced: counts cold and
      pool-resident, group-by, Mutations, against the host oracle and a
      one-device engine; K1, K2, K3, K5 launched, no plain version);
+  8d. the pod path: phase 5's corpus saved as a snapshot under build/;
+     ranks of one torch.distributed process group over the same 4 global
+     shards (on one card 2 ranks x 2 shards joined by gloo, since NCCL
+     takes one card per rank; on four cards 4 ranks x 1 over NCCL), each
+     loading the snapshot and keeping its shards of the port engine's
+     bank, run 8c's program at 8c's segment starts: each rank's words
+     (by hash), the all-reduced count and 64 segment counts equal 8c's;
+     per rank K1 and K2 launched, no plain version, no JAX module; the
+     step's busy time on the card (torch.profiler) and wall per call, the
+     all-reduce's wall time alone, peak and held device memory; then
+     lapis_silo_torch.parallel.distributed_worker as one NCCL rank with 4
+     shards on the first card against the numpy oracle;
   9. the slice's path: phase 5's corpus saved with the port's save_database
      under build/, loaded by the port's DatabaseDirectoryWatcher (which
      installs the port's engine on the visible cards and warms it up) and
@@ -117,7 +130,7 @@ Phases, one line each or more (the last line is the JSON verdict):
      card's name
      and power limit;
   6. assertions: every kernel launched during phases 4, 5, 7, 8, 9, 10 and
-     11 (phase 11's counts come from its three processes; but
+     11 (phase 8d's and 11's counts come from their processes; but
      popcount_rows_and_filter, which no engine path calls) and no plain
      version ran there, K1, K2 and K9 launched in phase 10 and in each
      process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
@@ -137,6 +150,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import gc
+import hashlib
 import http.client as http_client
 import json
 import os
@@ -227,6 +241,25 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def busy_ms(fn, reps: int) -> float:
+    """The card's busy time per call of fn() in ms: the kernels and copies
+    of `reps` calls as torch.profiler (CUPTI) records them, summed. Unlike
+    cuda_ms it leaves out the card's idle gaps, where the host blocks
+    (gloo's all-reduce) or another process has the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    assert busy_us > 0, "the profiler saw no device time"
+    return busy_us / 1e3 / reps
+
+
 def bound(n_bytes: float, n_ops: float, n_cards: int = 1) -> tuple:
     """(bound_ms, bound_by) of work that moves `n_bytes` and does `n_ops`
     spread evenly over `n_cards` cards."""
@@ -274,6 +307,11 @@ def max_abs_err(got, want) -> int:
     got = got.to(torch.int64) & 0xFFFFFFFF
     want = want.to(torch.int64) & 0xFFFFFFFF
     return int((got - want).abs().max()) if got.numel() else 0
+
+
+def word_hash(words) -> str:
+    """SHA-256 of a word tensor's int32 bytes."""
+    return hashlib.sha256(words.cpu().numpy().tobytes()).hexdigest()
 
 
 class MainPath:
@@ -446,19 +484,31 @@ def compact_and_groupby_kernels(engine, kernels, torch, db, err: dict,
             date_bins = n_bins
     # the kernels line reports the first (one-card, one-shard) reading
     timings.setdefault("group_counts", date)
+    compact_bound_ms = compact_bound(engine.n_flat_words, cap,
+                                     len(engine.shards))[0]
     log(f"{label} compact", f"evaluate_compact equals evaluate() below and "
         f"above the cap ({cap}) on {len(engine.shards)} shard(s) of "
         f"{engine.shards.local_words} words; compaction {compact_ms:.4f} ms "
-        f"on the card for {engine.n_flat_words} words; per call "
+        f"on the card for {engine.n_flat_words} words (bound "
+        f"{compact_bound_ms:.5f} ms, bytes); per call "
         f"{compact_wall:.4f} ms against "
         f"{full_wall:.4f} ms for evaluate() (overflow {overflow_wall:.4f} ms)")
     log(f"{label} group_counts", f"K9 bit-exact for {len(GROUP_BYS)} column "
         f"lists over {n_set} set bits on {len(args)} shard(s); by date "
         f"(G {date_bins}): kernel {date[0]:.4f} ms, plain {date[1]:.2f} ms, "
         f"bound {bound(*date[2:])[0]:.4f} ms")
-    return {"ms": compact_ms, "wall": compact_wall,
+    return {"ms": compact_ms, "bound_ms": compact_bound_ms,
+            "wall": compact_wall,
             "evaluate_wall": full_wall, "overflow_wall": overflow_wall,
             "words": engine.n_flat_words, "sweep": sweep}
+
+
+def compact_bound(n_words: int, cap: int, n_shards: int = 1) -> tuple:
+    """(bound_ms, bound_by) of the compaction of `n_words` flat words over
+    `n_shards` shards on one card: each word read once, each shard's block
+    of 1 + 2 `cap` int32 written once; a compare and a prefix-sum add per
+    word."""
+    return bound(4 * n_words + 4 * (1 + 2 * cap) * n_shards, 2 * n_words)
 
 
 # flat word counts of the compaction sweep: the engine's COMPACT_MIN_WORDS,
@@ -504,7 +554,8 @@ def compact_sweep(engine, torch) -> dict:
                 "compact_ms": statistics.median(times[extract]),
                 "compact_card_ms": cuda_ms(
                     lambda: reductions.compact_nonzero(words, cap, 0),
-                    reps=20)})
+                    reps=20),
+                "compact_bound_ms": compact_bound(n, cap)[0]})
             del words
     wins = [n for n in SWEEP_WORDS
             if all(r["compact_ms"] < r["evaluate_ms"] for r in rows
@@ -513,7 +564,8 @@ def compact_sweep(engine, torch) -> dict:
         "readings), bitset copy (evaluate) against extraction "
         "(evaluate_compact), per flat words/non-zero words: "
         + "; ".join(f"{r['words']}/{r['nonzero']}: {r['evaluate_ms']:.4f} vs "
-                    f"{r['compact_ms']:.4f} (card {r['compact_card_ms']:.4f})"
+                    f"{r['compact_ms']:.4f} (card {r['compact_card_ms']:.4f}, "
+                    f"bound {r['compact_bound_ms']:.5f})"
                     for r in rows)
         + f"; extraction faster at both fills at {wins} words "
         f"(COMPACT_MIN_WORDS {type(engine).COMPACT_MIN_WORDS})")
@@ -1050,10 +1102,10 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
 
 
 def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
-            timings: dict) -> None:
+            timings: dict) -> tuple[str, dict]:
     """Phase 5's corpus and answers on the sharded engine (the single-device
     engine already dropped), with the sharded kernels, the compaction and
-    K9 compared first."""
+    K9 compared first. Returns phase 8c's query and its step's results."""
     from lapis_silo_torch.query.engine import Query
     from lapis_silo_torch.testing import sample_count_queries
 
@@ -1079,18 +1131,20 @@ def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
         assert kernels.VM_RUN_SHARDED.launches > 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches > 0
         assert kernels.GROUP_COUNTS.launches > 0
-    phase8c(main, kernels, torch, engine, lowered[3])
+    step_results = phase8c(main, kernels, torch, engine, lowered[3])
     del engine
     detach(db, torch)
+    return wide[3], step_results
 
 
-def phase8c(main: MainPath, kernels, torch, engine, program) -> None:
+def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
     """ShardedQueryStep over the sharded engine's four [89,709, 8,192]
     banks: one program of the wide batch, its words, count and 64 segment
     counts against the plain versions on the card and a popcount on the
     host, for the main segment's start and a start past the end (clamped);
     its time per call on the card and wall. Then dryrun_multichip on 4
-    shards of the visible cards."""
+    shards of the visible cards. Returns, per segment start, the step's
+    words (a SHA-256 per shard), count and segment counts."""
     from lapis_silo_torch.ops import vm
     from lapis_silo_torch.parallel.dryrun import dryrun_multichip
     from lapis_silo_torch.parallel.mesh import ShardedQueryStep
@@ -1105,8 +1159,12 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> None:
         step(code, banks, dyns, fulls, starts[0])
         assert kernels.VM_RUN_SHARDED.launches == 1
         assert kernels.MUTATION_COUNTS_SHARDED.launches == 1
+    results = {}
     for start in starts:
         words, count, muts = step(code, banks, dyns, fulls, start)
+        results[start] = {"hashes": [word_hash(w) for w in words],
+                          "count": int(count),
+                          "mutation_counts": muts.cpu().tolist()}
         plain_words, _emits = kernels.vm_run_sharded_plain(
             torch.from_numpy(code), code.shape[1], banks, dyns,
             step._no_sparse, fulls, vm.MAX_REGS)
@@ -1140,6 +1198,222 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> None:
         f"group-by and Mutations bit-exact against the host oracle and a "
         f"one-device engine in {time.perf_counter() - t0:.1f} s; launches "
         f"(kernel, plain) {report['launches']}")
+    return results
+
+
+# one rank of phase 8d's pod path, run as `python -c POD_RANK <report path>
+# <spec JSON>`: joins the process group, loads the snapshot, builds the
+# port's engine over all D word shards on its card, keeps its own shards of
+# the bank, dyn rows and full mask and frees the rest; runs ShardedQueryStep
+# at each segment start with the launch counts set to 0 just before and
+# read just after; then times the step (the card's busy time and wall) and
+# the all-reduce alone and writes its report as JSON
+POD_RANK = """
+import datetime, gc, json, sys, time
+t_start = time.perf_counter()
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke
+from lapis_silo_torch.ops import kernels
+from lapis_silo_torch.ops.device_engine import DeviceEngine
+from lapis_silo_torch.parallel import distributed
+from lapis_silo_torch.parallel.mesh import ShardedQueryStep, make_mesh
+from lapis_silo_torch.query.engine import Query
+from lapis_silo_torch.storage.snapshot import load_database
+report_path, spec = sys.argv[1], json.loads(sys.argv[2])
+device = torch.device(spec["device"])
+backend = distributed.initialize(
+    spec["init"], spec["world"], spec["rank"], device, spec["backend"],
+    timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+try:
+    db = load_database(spec["snapshot"])
+    mesh = make_mesh([device] * spec["local"])
+    engine = DeviceEngine(db, device, devices=[device] * mesh.n_shards)
+    code, _n, banks, dyns, _rows, fulls, _regs, _seg = engine.kernel_inputs(
+        engine._prepare_program(engine.lower(Query(spec["query"]).filter)[0]))
+    mine = slice(mesh.rank * spec["local"], (mesh.rank + 1) * spec["local"])
+    banks, dyns, fulls = banks[mine], dyns[mine], fulls[mine]
+    n_words = engine.n_flat_words
+    del db, engine, _rows
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    ready_s = time.perf_counter() - t_start
+    held = torch.cuda.memory_allocated(device)
+    code = np.ascontiguousarray(code.numpy())
+    step = ShardedQueryStep(mesh, n_words)
+    kernels.reset_counts()
+    results = []
+    for start in spec["starts"]:
+        words, count, muts = step(code, banks, dyns, fulls, start)
+        results.append({"hashes": [chip_smoke.word_hash(w) for w in words],
+                        "count": int(count),
+                        "mutation_counts": muts.cpu().tolist()})
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    plain = {k.name: k.plain_launches for k in kernels.KERNELS}
+    run = lambda: step(code, banks, dyns, fulls, spec["starts"][0])
+    step_busy = chip_smoke.busy_ms(run, reps=20)
+    step_wall = chip_smoke.wall_ms(run, reps=20)
+    totals = torch.zeros(65, dtype=torch.int32, device=device)
+    allreduce_wall = chip_smoke.wall_ms(lambda: dist.all_reduce(totals),
+                                        reps=20, warmup=3)
+finally:
+    distributed.shutdown()
+with open(report_path, "w") as f:
+    json.dump({"backend": backend, "device": str(device), "n_words": n_words,
+               "results": results, "launches": launches, "plain": plain,
+               "step_busy_ms": step_busy, "step_wall_ms": step_wall,
+               "allreduce_wall_ms": allreduce_wall, "ready_s": ready_s,
+               "held_bytes": held,
+               "peak_bytes": torch.cuda.max_memory_allocated(device),
+               "banned": sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "jaxlib", "lapis_silo_tpu"))}, f)
+"""
+
+
+def wait_ranks(procs: dict, label: str, timeout: float = 600) -> None:
+    """Wait for every process of `procs` ({label: (process, log path)}).
+    Where one fails, or one is still running 30 s after another failed or
+    at the deadline, the rest are killed and the smoke ends with every
+    log's tail: a rank that died leaves the others in a collective."""
+    deadline = time.monotonic() + timeout
+    failed_at = None
+    while any(proc.poll() is None for proc, _ in procs.values()):
+        now = time.monotonic()
+        if failed_at is None and any(proc.poll() not in (None, 0)
+                                     for proc, _ in procs.values()):
+            failed_at = now
+        if now > deadline or (failed_at is not None and now > failed_at + 30):
+            break
+        time.sleep(0.2)
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    codes = {name: proc.returncode for name, (proc, _) in procs.items()}
+    if any(codes.values()):
+        for name, (proc, log_path) in procs.items():
+            print(f"--- {name} (exit {proc.returncode}):\n"
+                  f"{log_path.read_text()[-4000:]}", flush=True)
+        raise SystemExit(f"{label}: ranks exited {codes}")
+
+
+def worker_oracle(n_shards: int) -> tuple[np.ndarray, int, int]:
+    """The numpy oracle of the pod-path worker's inputs at D shards
+    (tests/test_jax_distributed.py's): the words, the count and the sum of
+    the 64 segment counts."""
+    rng = np.random.default_rng(0)
+    bank = rng.integers(0, 1 << 32, size=(64, 2 * 4 * n_shards),
+                        dtype=np.uint32)
+    words = bank[3] & bank[7]
+    return (words, int(np.bitwise_count(words).sum()),
+            int(np.bitwise_count(bank & words[None, :]).sum()))
+
+
+def phase8d(main: MainPath, kernels, torch, db, query: str,
+            want: dict) -> dict:
+    """The pod path at full width: phase 5's corpus saved as a snapshot
+    under build/, then ranks of one process group over the N_SHARDS global
+    word shards: on one card 2 ranks x 2 shards joined by gloo (NCCL takes
+    one card per rank), on 4 cards 4 ranks x 1 over NCCL. Each rank loads
+    the snapshot, keeps its shards of the port engine's bank and runs
+    ShardedQueryStep on phase 8c's query at 8c's segment starts (`want`:
+    its words' hashes, count and segment counts per start), which its
+    words, the all-reduced count and segment counts must equal; K1 and K2
+    launched in every rank, no plain version, no JAX module. Then the NCCL
+    route on every machine: the worker, one rank with N_SHARDS shards on
+    the first card, against the numpy oracle. Returns the ranks' times,
+    memory and backends."""
+    from lapis_silo_torch.storage.snapshot import save_database
+
+    base = ROOT / "build" / "smoke_pod"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    snapshot = save_database(db, str(base / "data"))
+    out = {"save_s": time.perf_counter() - t0}
+    n_cards = torch.cuda.device_count()
+    world = N_SHARDS if n_cards >= N_SHARDS else 2
+    local = N_SHARDS // world
+    # NCCL takes one card per rank; ranks sharing one card join over gloo,
+    # which stages the CUDA tensors of the all-reduce through the host
+    backend = "nccl" if n_cards >= world else "gloo"
+    starts = list(want)
+    procs = {}
+    t0 = time.perf_counter()
+    for rank in range(world):
+        spec = {"init": f"file://{base / 'rendezvous'}", "world": world,
+                "rank": rank, "local": local,
+                "device": f"{DEVICE}:{rank % n_cards}", "backend": backend,
+                "timeout_s": 300, "snapshot": snapshot, "query": query,
+                "starts": starts}
+        procs[f"rank{rank}"] = start_process(base, f"rank{rank}", [
+            "-c", POD_RANK, str(base / f"rank{rank}.json"), json.dumps(spec)])
+    wait_ranks(procs, "8d")
+    out["ranks_s"] = time.perf_counter() - t0
+    reports = [json.loads((base / f"rank{r}.json").read_text())
+               for r in range(world)]
+    for rank, report in enumerate(reports):
+        for start, got in zip(starts, report["results"]):
+            ref = want[start]
+            assert got["hashes"] == ref["hashes"][rank * local:
+                                                  (rank + 1) * local], (
+                rank, start)
+            assert (got["count"], got["mutation_counts"]) == (
+                ref["count"], ref["mutation_counts"]), (rank, start)
+        for name in ("vm_run", "mutation_counts", "vm_run_sharded",
+                     "mutation_counts_sharded"):
+            assert report["launches"][name] > 0, (rank, name)
+        assert not any(report["plain"].values()), (rank, report["plain"])
+        assert report["banned"] == [], (rank, report["banned"])
+        assert report["backend"] == backend, report["backend"]
+        main.add(report["launches"], report["plain"])
+    out["ranks"] = [{k: r[k] for k in ("device", "backend", "step_busy_ms",
+                                       "step_wall_ms", "allreduce_wall_ms",
+                                       "ready_s", "held_bytes", "peak_bytes")}
+                    for r in reports]
+    log("8d pod", f"{world} ranks x {local} shards over {backend} on "
+        f"{[r['device'] for r in reports]} ({n_cards} card(s)), "
+        f"PW {reports[0]['n_words']} words: each rank's words, the count and "
+        f"the 64 segment counts at segment starts {starts} equal phase 8c's "
+        f"one-process step; K1 and K2 launched in every rank, no plain "
+        f"version, no JAX module; snapshot saved in {out['save_s']:.1f} s, "
+        f"ranks done in {out['ranks_s']:.1f} s; per rank: "
+        + "; ".join(
+            f"rank {i} shards ready {r['ready_s']:.1f} s after start, step "
+            f"{r['step_busy_ms']:.4f} ms per call busy on the card, "
+            f"{r['step_wall_ms']:.4f} ms wall, all-reduce of 65 int32 alone "
+            f"{r['allreduce_wall_ms']:.4f} ms wall, holds "
+            f"{r['held_bytes'] / 1e9:.2f} GB, peak "
+            f"{r['peak_bytes'] / 1e9:.2f} GB"
+            for i, r in enumerate(reports))
+        + "; launches " + str([{n: v for n, v in r["launches"].items() if v}
+                               for r in reports])
+        + f"; {nvidia_smi()}")
+    # the NCCL route on every machine: one rank, all shards on one card
+    words, count, mut = worker_oracle(N_SHARDS)
+    t0 = time.perf_counter()
+    proc = start_process(base, "worker", [
+        "-m", "lapis_silo_torch.parallel.distributed_worker",
+        f"file://{base / 'rendezvous_worker'}", "1", "0", "--device",
+        f"{DEVICE}:0", "--backend", "nccl", "--local-shards", str(N_SHARDS),
+        "--out", str(base / "worker")])
+    wait_ranks({"worker": proc}, "8d worker")
+    out["worker_s"] = time.perf_counter() - t0
+    worker = json.loads((base / "worker" / "rank0.json").read_text())
+    assert f"RESULT count={count} mut={mut}" in proc[1].read_text()
+    assert worker["words"] == words.tolist() and worker["backend"] == "nccl"
+    for name in ("vm_run", "mutation_counts"):
+        assert worker["launches"][name] > 0, name
+    assert not any(worker["plain"].values()), worker["plain"]
+    main.add(worker["launches"], worker["plain"])
+    log("8d worker", f"python -m lapis_silo_torch.parallel.distributed_worker "
+        f"over nccl, 1 rank x {N_SHARDS} shards on {DEVICE}:0: RESULT "
+        f"count={count} mut={mut} equals the numpy oracle, its words too; "
+        f"{out['worker_s']:.1f} s with the process's start")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
 
 
 def phase8b(main: MainPath, kernels, torch, answers: dict,
@@ -1300,18 +1574,27 @@ def free_port() -> int:
         return probe.getsockname()[1]
 
 
-def start_host(base: Path, label: str, argv: list[str]):
-    """One host of phase 11's slice: the port's CLI through HOST_WRAPPER,
-    serving on the visible card (SILO_TORCH_DEVICE and SILO_HTTP_IMPL
-    unset). Returns (process, report path, log path)."""
+def start_process(base: Path, label: str, args: list[str]):
+    """`python <args>` in `base` with this checkout on its path, on the
+    visible cards (SILO_TORCH_DEVICE and SILO_HTTP_IMPL unset), its output
+    in base/<label>.log. Returns (process, log path)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("SILO_TORCH_DEVICE", "SILO_HTTP_IMPL", "PYTHONPATH")}
     env["PYTHONPATH"] = str(ROOT)
-    report, log_path = base / f"{label}.json", base / f"{label}.log"
+    log_path = base / f"{label}.log"
     with open(log_path, "w") as log_file:
-        proc = subprocess.Popen(
-            [sys.executable, "-c", HOST_WRAPPER, str(report), *argv],
-            cwd=base, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen([sys.executable, *args], cwd=base, env=env,
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def start_host(base: Path, label: str, argv: list[str]):
+    """One host of phase 11's slice: the port's CLI through HOST_WRAPPER,
+    serving on the visible card. Returns (process, report path, log
+    path)."""
+    report = base / f"{label}.json"
+    proc, log_path = start_process(
+        base, label, ["-c", HOST_WRAPPER, str(report), *argv])
     return proc, report, log_path
 
 
@@ -1939,8 +2222,10 @@ def main() -> int:
     del big_engine
     detach(big, torch)
 
-    # 8a: the same corpus on the word-sharded engine
-    phase8a(main_path, kernels, torch, big, big_answers, err, timings)
+    # 8a: the same corpus on the word-sharded engine; 8d: its pod path
+    pod_query, step_results = phase8a(main_path, kernels, torch, big,
+                                      big_answers, err, timings)
+    pod = phase8d(main_path, kernels, torch, big, pod_query, step_results)
     # 9: the same corpus as a snapshot, served over HTTP
     served_answers = {**big_answers,
                       "Details": (big_answers["Details"][0][:1],
@@ -1969,7 +2254,8 @@ def main() -> int:
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
     log("6 summary", "compaction (torch ops, no kernel) "
-        + json.dumps(compaction) + "; phase 9 " + json.dumps(served)
+        + json.dumps(compaction) + "; phase 8d " + json.dumps(pod)
+        + "; phase 9 " + json.dumps(served)
         + "; phase 10 " + json.dumps(ingested) + "; phase 11 "
         + json.dumps(sliced))
     assert all(n for name, n in main_path.launches.items()

@@ -16,7 +16,9 @@ device ``devices[0]`` and added there (the counterpart of ``psum``).
 at most 4,096 int32s (or one per stored row), so plain copies and adds do
 it. The only words that cross shards are a Mutations filter's, gathered
 whole onto each distinct device for the entry-split sparse reduction (the
-reference's all-gather, lapis_silo_tpu/ops/reductions.py:124).
+reference's all-gather, lapis_silo_tpu/ops/reductions.py:124). Across
+processes (``parallel/mesh.py``'s ``ProcessMesh``) each rank holds some of
+the shards; ``rank_words`` takes its shards of a host array.
 """
 
 from __future__ import annotations
@@ -91,6 +93,17 @@ def split_words(words: np.ndarray, devices) -> list[torch.Tensor]:
     local = words.shape[-1] // len(devices)
     return [to_device(words[..., d * local:(d + 1) * local], device)
             for d, device in enumerate(devices)]
+
+
+def rank_words(words: np.ndarray, mesh) -> list[torch.Tensor]:
+    """uint32 host words [..., PW] of the whole flat axis -> this rank's
+    shards of `mesh` (a ``ProcessMesh``): one int32 tensor [..., PW/D] per
+    local device, global shard ``rank * L + l`` on local device l."""
+    if words.shape[-1] % mesh.n_shards:
+        raise ValueError(f"{words.shape[-1]} words do not split over "
+                         f"{mesh.n_shards} shards")
+    lo, hi = mesh.window(words.shape[-1])
+    return split_words(words[..., lo:hi], mesh.local_devices)
 
 
 def gather_words(parts: list[torch.Tensor], device) -> torch.Tensor:
