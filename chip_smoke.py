@@ -5,7 +5,8 @@ snapshot served over HTTP by one process and by a multi-host slice of
 three, and input files ingested by the port into a snapshot that it serves
 on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase, on one card or more
+    python3 chip_smoke.py --pod     # phases 8c and 8d alone (four cards)
 
 Phases, one line each or more (the last line is the JSON verdict):
   1. environment: torch/CUDA versions, the card's name and power limit;
@@ -15,7 +16,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      card, bit-exact (tolerance 0: every value is an integer), on random
      inputs (ragged word counts, empty segments, K = 1 and K at the caps,
      pool slots including the scratch row, densify windows of word shards,
-     the VM in one segment and in random segments, also over 4 word shards,
+     the VM in one segment and in random segments, also over 4 word shards
+     and over 3 of ragged widths,
      the group-count kernel K9 at every bucket edge with padding and
      negative codes, all bits set and clear, and shard windows) and at the
      main paths' shapes (the 512-query batch in its per-query segments, and
@@ -48,8 +50,9 @@ Phases, one line each or more (the last line is the JSON verdict):
      there is one; the phase says which), four [89,709, 8,192] banks; the 64
      counts, a 512-query count_programs call, the group-by and Details
      queries and one Mutations query, all equal to the host oracle;
-     vm_run_sharded and mutation_counts_sharded against their plain versions
-     at these shapes, with both times, and the compaction and K9 per shard;
+     vm_run_sharded (K6) and mutation_counts_sharded against their plain
+     versions at these shapes, with both times, K6's bound and beside it K1
+     over all 32,768 words in one launch; the compaction and K9 per shard;
   8c. on the same shards, lapis_silo_torch.parallel.mesh.ShardedQueryStep:
      one program's words, count and 64 segment counts (the main segment's
      start, and a start past the end, clamped) equal to the plain versions
@@ -57,7 +60,7 @@ Phases, one line each or more (the last line is the JSON verdict):
      and wall; then parallel.dryrun.dryrun_multichip on 4 shards of the
      visible cards (its own corpus, the sparse tier forced: counts cold and
      pool-resident, group-by, Mutations, against the host oracle and a
-     one-device engine; K1, K2, K3, K5 launched, no plain version);
+     one-device engine; K6, K2, K3, K5 launched, no plain version);
   8d. the pod path: phase 5's corpus saved as a snapshot under build/;
      ranks of one torch.distributed process group over the same 4 global
      shards (on one card 2 ranks x 2 shards joined by gloo, since NCCL
@@ -65,9 +68,10 @@ Phases, one line each or more (the last line is the JSON verdict):
      loading the snapshot and keeping its shards of the port engine's
      bank, run 8c's program at 8c's segment starts: each rank's words
      (by hash), the all-reduced count and 64 segment counts equal 8c's;
-     per rank K1 and K2 launched, no plain version, no JAX module; the
-     step's busy time on the card (torch.profiler) and wall per call, the
-     all-reduce's wall time alone, peak and held device memory; then
+     per rank the VM (K6, or K1 with one shard a card) and K2 launched,
+     no plain version, no JAX module; the step's busy time on the card
+     (torch.profiler) and wall per call, the all-reduce's wall time
+     alone, peak and held device memory; then
      lapis_silo_torch.parallel.distributed_worker as one NCCL rank with 4
      shards on the first card against the numpy oracle;
   9. the slice's path: phase 5's corpus saved with the port's save_database
@@ -91,7 +95,7 @@ Phases, one line each or more (the last line is the JSON verdict):
      once /info counts the whole corpus, phase 9's queries through the
      coordinator over HTTP, the 64 counts again from 16 threads (the
      batched fan-out), /info and /info?details=true, every body equal to
-     the host oracle over the whole corpus; per process K1, K2 and K9
+     the host oracle over the whole corpus; per process the VM, K2 and K9
      launched, no plain version, no JAX module; SIGTERM ends each with exit
      code 0; seconds to the first committed version, p50 per action beside
      phase 9's, device memory per process (nvidia-smi);
@@ -132,7 +136,8 @@ Phases, one line each or more (the last line is the JSON verdict):
   6. assertions: every kernel launched during phases 4, 5, 7, 8, 9, 10 and
      11 (phase 8d's and 11's counts come from their processes; but
      popcount_rows_and_filter, which no engine path calls) and no plain
-     version ran there, K1, K2 and K9 launched in phase 10 and in each
+     version ran there, the VM (K1, or K6 where a card holds several
+     shards), K2 and K9 launched in phase 10 and in each
      process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
      the device path stayed on.
 
@@ -338,6 +343,13 @@ class MainPath:
         for name in self.launches:
             self.launches[name] += launches[name]
             self.plain[name] += plain[name]
+
+
+def vm_launched(launches: dict) -> bool:
+    """Whether the filter VM ran on the card, by launch counts per kernel
+    name: K1 where an engine has one shard per card, K6 (vm_run_sharded)
+    where a card holds several."""
+    return launches["vm_run"] + launches["vm_run_sharded"] > 0
 
 
 def oracle(db, queries: list[str]) -> list[dict]:
@@ -628,7 +640,8 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     every mode and b-source, n_regs 4/8/16/32, clamped operands, the NOP
     tail, out-of-range and repeated EMITs, PW 2,048 and ragged PWs, each
     program as one segment and cut into random segments (empty ones and
-    segments of one instruction included), also over 4 word shards; for the
+    segments of one instruction included), also over 4 word shards and 3
+    of ragged widths (K6); for the
     Mutations kernel unaligned segments; for the sparse kernels empty
     segments, ragged PWs, K = 1, K = 1,024 (the two-tier poolless cap), a
     4,096-leaf pool update, with pool slots including the scratch row, and
@@ -671,19 +684,27 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                 want = kernels.vm_run_plain(*args)
                 for g, w in zip(got, want):
                     err["vm_run"] = max(err["vm_run"], max_abs_err(g, w))
-                if pw % 4:
-                    continue
-                # the same program over 4 word shards
-                shards = (*args[:2], *([dev(part) for part in np.split(
-                    a, 4, axis=-1)] for a in (bank, dyn, sparse, full)),
-                          n_regs, segments)
-                (got_words, got_counts), (want_words, want_counts) = (
-                    kernels.vm_run_sharded(*shards),
-                    kernels.vm_run_sharded_plain(*shards))
-                err["vm_run_sharded"] = max(
-                    err["vm_run_sharded"],
-                    max_abs_err(got_counts, want_counts),
-                    *map(max_abs_err, got_words, want_words))
+                # the same program over 4 word shards of one card (where
+                # PW splits evenly) and over 3 of ragged widths round-robin
+                # on the visible cards: K6 once per card
+                n_cards = torch.cuda.device_count()
+                for n_shards, cards in (
+                        ((4, [device] * 4),) if pw % 4 == 0 else ()) + (
+                        (3, [torch.device(DEVICE, d % n_cards)
+                             for d in range(3)]),):
+                    shards = (*args[:2], *([
+                        torch.from_numpy(np.ascontiguousarray(part).view(
+                            np.int32)).to(card)
+                        for part, card in zip(np.array_split(
+                            a, n_shards, axis=-1), cards)]
+                        for a in (bank, dyn, sparse, full)), n_regs, segments)
+                    (got_words, got_counts), (want_words, want_counts) = (
+                        kernels.vm_run_sharded(*shards),
+                        kernels.vm_run_sharded_plain(*shards))
+                    err["vm_run_sharded"] = max(
+                        err["vm_run_sharded"],
+                        max_abs_err(got_counts, want_counts),
+                        *map(max_abs_err, got_words, want_words))
     for pw, start, n_rows in ((2048, 3, 1000), (2045, 1, 999), (77, 0, 1003)):
         bank = dev(rng.integers(0, 1 << 32, size=(1003, pw), dtype=np.uint32))
         filt = dev(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32))
@@ -1050,14 +1071,17 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
     mutation_counts_sharded (the main segment against a Mutations filter)
     against their plain versions at the sharded engine's shapes, with both
     times and the work for their bounds (spread over the cards the shards
-    lie on)."""
+    lie on); beside K6, K1 over all the shards' words in one launch, the
+    same work on one card."""
+    import torch
+
     from lapis_silo_torch.ops import vm
     from lapis_silo_torch.query.engine import Query
 
     on_device = [p for p in lowered
                  if engine.host_count(p, allow_interpret=False) is None]
     inputs = engine.kernel_inputs(engine.batch_args(on_device))
-    code, n_instr, banks, dyns, rows, _fulls, _n_regs, segments = inputs
+    code, n_instr, banks, dyns, rows, fulls, n_regs, segments = inputs
     (got_words, got_counts), (want_words, want_counts) = (
         kernels.vm_run_sharded(*inputs), kernels.vm_run_sharded_plain(*inputs))
     err["vm_run_sharded"] = max(err["vm_run_sharded"],
@@ -1087,13 +1111,29 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
         4 * (n_rows * pw + pw + n_rows * len(engine.banks)), 2 * n_rows * pw,
         len(engine.shards.distinct))
     sharded_wall_ms = wall_ms(lambda: kernels.vm_run_sharded(*inputs), reps=20)
+    # the yardstick: K1 over all the shards' words in one launch on the first
+    # card, the dense deployment's launch
+    whole = [torch.cat([part.to(engine.shards.devices[0]) for part in parts],
+                       dim=-1) for parts in (banks, dyns, rows, fulls)]
+    yard = (code, n_instr, *whole, n_regs, segments)
+    yard_words, yard_counts = kernels.vm_run(*yard)
+    err["vm_run"] = max(err["vm_run"], max_abs_err(yard_counts, got_counts),
+                        max_abs_err(yard_words, torch.cat(
+                            [w.to(yard_words.device) for w in got_words])))
+    yard_ms = cuda_ms(lambda: kernels.vm_run(*yard), reps=20)
+    del whole, yard, yard_words
+    torch.cuda.empty_cache()
+    k6_bound = bound(*timings["vm_run_sharded"][2:])[0]
     log("8a kernels", f"sharded shapes bit-exact, max_abs_err "
         f"{ {k: err[k] for k in ('vm_run_sharded', 'mutation_counts_sharded')} }; "
         f"vm_run_sharded {len(on_device)} programs, {n_instr} instructions in "
         f"{len(segments) - 1} segments, "
-        f"{len(engine.banks)} shards of {engine.shards.local_words} words: "
-        f"kernel {timings['vm_run_sharded'][0]:.4f} ms (the wrapper's wall "
-        f"time per call {sharded_wall_ms:.4f} ms), plain "
+        f"{len(engine.banks)} shards of {engine.shards.local_words} words on "
+        f"{len(engine.shards.distinct)} card(s): kernel "
+        f"{timings['vm_run_sharded'][0]:.4f} ms (bound {k6_bound:.4f} ms, "
+        f"{timings['vm_run_sharded'][2] / 1e6:.2f} MB; the wrapper's wall "
+        f"time per call {sharded_wall_ms:.4f} ms; K1 over the "
+        f"{engine.n_flat_words} words in one launch {yard_ms:.4f} ms), plain "
         f"{timings['vm_run_sharded'][1]:.1f} ms; mutation_counts_sharded "
         f"{meta['n_stored']} rows x {len(engine.banks)} shards of "
         f"{engine.shards.local_words} words: kernel "
@@ -1157,7 +1197,8 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
     starts = (engine.segment_meta[("nuc", "main")]["offset"], n_rows + 10)
     with main.phase():
         step(code, banks, dyns, fulls, starts[0])
-        assert kernels.VM_RUN_SHARDED.launches == 1
+        assert kernels.VM_RUN_SHARDED.launches == len(engine.shards.distinct)
+        assert kernels.VM_RUN.launches == 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches == 1
     results = {}
     for start in starts:
@@ -1320,11 +1361,11 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     the snapshot, keeps its shards of the port engine's bank and runs
     ShardedQueryStep on phase 8c's query at 8c's segment starts (`want`:
     its words' hashes, count and segment counts per start), which its
-    words, the all-reduced count and segment counts must equal; K1 and K2
-    launched in every rank, no plain version, no JAX module. Then the NCCL
-    route on every machine: the worker, one rank with N_SHARDS shards on
-    the first card, against the numpy oracle. Returns the ranks' times,
-    memory and backends."""
+    words, the all-reduced count and segment counts must equal; the VM
+    and K2 launched in every rank, no plain version, no JAX module. Then
+    the NCCL route on every machine: the worker, one rank with N_SHARDS
+    shards on the first card, against the numpy oracle. Returns the
+    ranks' times, memory and backends."""
     from lapis_silo_torch.storage.snapshot import save_database
 
     base = ROOT / "build" / "smoke_pod"
@@ -1362,8 +1403,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
                 rank, start)
             assert (got["count"], got["mutation_counts"]) == (
                 ref["count"], ref["mutation_counts"]), (rank, start)
-        for name in ("vm_run", "mutation_counts", "vm_run_sharded",
-                     "mutation_counts_sharded"):
+        assert vm_launched(report["launches"]), (rank, report["launches"])
+        for name in ("mutation_counts", "mutation_counts_sharded"):
             assert report["launches"][name] > 0, (rank, name)
         assert not any(report["plain"].values()), (rank, report["plain"])
         assert report["banned"] == [], (rank, report["banned"])
@@ -1377,8 +1418,9 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
         f"{[r['device'] for r in reports]} ({n_cards} card(s)), "
         f"PW {reports[0]['n_words']} words: each rank's words, the count and "
         f"the 64 segment counts at segment starts {starts} equal phase 8c's "
-        f"one-process step; K1 and K2 launched in every rank, no plain "
-        f"version, no JAX module; snapshot saved in {out['save_s']:.1f} s, "
+        f"one-process step; the VM (K6 with 2 shards a card, K1 with 1) and "
+        f"K2 launched in every rank, no plain version, no JAX module; "
+        f"snapshot saved in {out['save_s']:.1f} s, "
         f"ranks done in {out['ranks_s']:.1f} s; per rank: "
         + "; ".join(
             f"rank {i} shards ready {r['ready_s']:.1f} s after start, step "
@@ -1404,8 +1446,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     worker = json.loads((base / "worker" / "rank0.json").read_text())
     assert f"RESULT count={count} mut={mut}" in proc[1].read_text()
     assert worker["words"] == words.tolist() and worker["backend"] == "nccl"
-    for name in ("vm_run", "mutation_counts"):
-        assert worker["launches"][name] > 0, name
+    assert vm_launched(worker["launches"]) and worker["launches"][
+        "mutation_counts"] > 0, worker["launches"]
     assert not any(worker["plain"].values()), worker["plain"]
     main.add(worker["launches"], worker["plain"])
     log("8d worker", f"python -m lapis_silo_torch.parallel.distributed_worker "
@@ -1636,7 +1678,7 @@ def phase11(main: MainPath, kernels, torch, db, answers: dict,
     and one --coordinator over them, each serving its shard on the visible
     card; phase 9's queries through the coordinator over HTTP, every body
     equal to the host oracle over the whole corpus, and /info and
-    /info?details=true to the whole database's; per host, K1, K2 and K9
+    /info?details=true to the whole database's; per host, the VM, K2 and K9
     launched after its first committed version, no plain version ran and
     no module of jax* or lapis_silo_tpu* loaded; SIGTERM ends each with
     exit code 0. Returns the seconds to the first committed version and
@@ -1733,7 +1775,8 @@ def phase11(main: MainPath, kernels, torch, db, answers: dict,
     reports = {label: json.loads(report.read_text())
                for label, (_p, report, _l) in procs.items()}
     for label, report in reports.items():
-        for name in ("vm_run", "mutation_counts", "group_counts"):
+        assert vm_launched(report["launches"]), (label, report["launches"])
+        for name in ("mutation_counts", "group_counts"):
             assert report["launches"][name] > 0, (label, name)
         assert not any(report["plain"].values()), (label, report["plain"])
         assert report["banned"] == [], (label, report["banned"])
@@ -1866,8 +1909,8 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
     """`answers` over HTTP from make_server on port 0 with SILO_HTTP_IMPL
     `impl` (and, with `fast`, the counts again through the native fast
     path), with the launch counts set to 0 just before and read just after:
-    K1, K2 and K9 launched and no plain version ran. Returns the p50 ms per
-    action (and the fast path's under "fast")."""
+    the VM, K2 and K9 launched and no plain version ran. Returns the p50 ms
+    per action (and the fast path's under "fast")."""
     from lapis_silo_torch.server import native_http
     from lapis_silo_torch.server.http_server import make_server
 
@@ -1888,8 +1931,9 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
             server.shutdown()
             server.server_close()
             os.environ.pop("SILO_HTTP_IMPL", None)
-        for k in (kernels.VM_RUN, kernels.MUTATION_COUNTS,
-                  kernels.GROUP_COUNTS):
+        assert vm_launched({k.name: k.launches for k in kernels.KERNELS}), (
+            f"the VM did not launch in {label}")
+        for k in (kernels.MUTATION_COUNTS, kernels.GROUP_COUNTS):
             assert k.launches > 0, f"{k.name} did not launch in {label}"
         assert not any(k.plain_launches for k in kernels.KERNELS), label
         log(f"{label} launches", f"{ {k.name: k.launches for k in kernels.KERNELS} } "
@@ -2055,6 +2099,31 @@ def fast_path_checks(native_http, port: int, served, queries: list[str],
     return p50
 
 
+def pod_only(main: MainPath, kernels, torch) -> None:
+    """`--pod`: phase 5's corpus on the sharded engine with phase 8a's
+    sharded kernels against their plain versions, then phases 8c and 8d
+    alone: the one-process step and the pod step over the same shards, for
+    a four-card machine, where the shards lie on four cards."""
+    from lapis_silo_torch.query.engine import Query
+    from lapis_silo_torch.testing import sample_count_queries, synthetic_database
+
+    big = synthetic_database(**DEPLOYMENT)
+    wide = sample_count_queries(big, 512, seed=7)
+    engine = install_sharded(big, torch, "8a")
+    lowered = [engine.lower(Query(q).filter)[0] for q in wide]
+    err, timings = {k.name: 0 for k in kernels.KERNELS}, {}
+    sharded_kernels(engine, kernels, lowered, mutations_queries(big)[0], err,
+                    timings)
+    assert all(e == 0 for e in err.values()), err
+    step_results = phase8c(main, kernels, torch, engine, lowered[3])
+    del engine
+    detach(big, torch)
+    pod = phase8d(main, kernels, torch, big, wide[3], step_results)
+    log("pod done", f"main-path launches {main.launches}, plain-version runs "
+        f"{main.plain}; phase 8d " + json.dumps(pod))
+    assert not any(main.plain.values()), main.plain
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2085,6 +2154,13 @@ def main() -> int:
               if "registers" in line or "Compiling entry" in line]
     log("2 build", f"{time.perf_counter() - t0:.1f} s for "
         f"{library.relative_to(ROOT)}; ptxas: {' | '.join(report)}")
+    if sys.argv[1:] == ["--pod"]:
+        pod_only(main_path, kernels, torch)
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # the bench-default corpus; its launches in phase 3 are comparisons and
     # do not count

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, wrap, count.
 
-Five kernels carry the count and Mutations paths over both tiers of the
-bank and a sixth the group-by, each in ``csrc/`` (TPU kernels in
-``lapis_silo_tpu/ops/pallas_kernels.py``), and three wrappers launch them in
+Six kernels carry the count and Mutations paths over both tiers of the
+bank and a seventh the group-by, each in ``csrc/`` (TPU kernels in
+``lapis_silo_tpu/ops/pallas_kernels.py``), and two wrappers launch them in
 the forms the TPU package wrote as kernels of their own:
 
 - ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing ``:526``
@@ -20,12 +20,16 @@ the forms the TPU package wrote as kernels of their own:
   place into rows of the hot-leaf pool, replacing ``:1252``
   ``densify_rows_into_pool``. Both densify kernels take a word window, so a
   word shard builds only its own words;
-- ``vm_run_sharded`` and ``mutation_counts_sharded``: K1 and K2 on every
-  word shard of a sharded engine, then the shards' counts summed on the
-  first shard's device, replacing ``:741`` ``vm_run_sharded`` and ``:777``
+- ``vm_run_sharded`` (``csrc/vm_run_sharded.cu``): the filter VM over every
+  word shard of a card in one launch per card, the counts summed on the
+  card and then across cards on the first shard's device, replacing
+  ``:741`` ``vm_run_sharded`` (a single shard runs K1 itself);
+- ``mutation_counts_sharded`` (wrapper): K2 on every word shard, the
+  shards' counts summed on the first shard's device, replacing ``:777``
   ``mutation_counts_banked_sharded``;
-- ``popcount_rows_and_filter``: K2 over every row of a row block, replacing
-  ``:104`` ``popcount_rows_and_filter`` (no engine path calls it);
+- ``popcount_rows_and_filter`` (wrapper): K2 over every row of a row
+  block, replacing ``:104`` ``popcount_rows_and_filter`` (no engine path
+  calls it);
 - ``group_counts`` (``csrc/group_counts.cu``): the group-by reduction of a
   filter over per-sequence group codes, counts per (partition, group),
   replacing the XLA reduction ``_group_counts_jit``
@@ -46,12 +50,14 @@ CPU it runs the plain PyTorch version instead, which adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -101,7 +107,7 @@ DENSIFY_ROWS = KernelCounts("densify_rows", "lapis_silo_torch/csrc/densify.cu")
 DENSIFY_INTO_POOL = KernelCounts("densify_rows_into_pool",
                                  "lapis_silo_torch/csrc/densify.cu")
 VM_RUN_SHARDED = KernelCounts("vm_run_sharded",
-                              "lapis_silo_torch/csrc/vm_run.cu")
+                              "lapis_silo_torch/csrc/vm_run_sharded.cu")
 MUTATION_COUNTS_SHARDED = KernelCounts(
     "mutation_counts_sharded", "lapis_silo_torch/csrc/mutation_counts.cu")
 POPCOUNT_ROWS = KernelCounts("popcount_rows_and_filter",
@@ -128,6 +134,8 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "lapis_vm_run": [_P, _I32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P,
                      _I64, _I32, _P, _P, _P],
+    "lapis_vm_run_sharded": [_P, _I32, _P, _I32, _P, _P, _P, _I32, _I32,
+                             _I32, _I64, _I32, _I32, _I32, _P, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
                             _P],
@@ -296,18 +304,7 @@ def _vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
     [2 n_instr + n_seg + 1]: operands, packed words, segment starts),
     uploaded at the first launch on it."""
     device = full.device
-    pw = full.shape[0] if full.dim() == 1 else -1
-    _check("full", full, device, (None,))
-    _check("code", code, torch.device("cpu"), (2, None))
-    _check("bank", bank, device, (None, pw))
-    _check("dyn", dyn, device, (None, pw))
-    _check("sparse_rows", sparse_rows, device, (None, pw))
-    if not 0 <= n_instr <= code.shape[1]:
-        raise ValueError(f"n_instr {n_instr} outside [0, {code.shape[1]}]")
-    if not 1 <= n_regs <= MAX_REGS:
-        raise ValueError(f"n_regs {n_regs} outside [1, {MAX_REGS}]")
-    if min(bank.shape[0], dyn.shape[0], sparse_rows.shape[0]) < 1:
-        raise ValueError("bank, dyn and sparse_rows need one row at least")
+    pw = _check_vm(code, n_instr, bank, dyn, sparse_rows, full, n_regs)
     if device.type == "cpu":
         return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
                             starts)
@@ -329,6 +326,27 @@ def _vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
     _raise_on(err, "vm_run")
     VM_RUN.add()
     return words, counts
+
+
+def _check_vm(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
+              dyn: torch.Tensor, sparse_rows: torch.Tensor, full: torch.Tensor,
+              n_regs: int) -> int:
+    """The VM's inputs checked (the code on the host, the rest int32,
+    contiguous and on full's device, one width PW); returns PW."""
+    device = full.device
+    pw = full.shape[0] if full.dim() == 1 else -1
+    _check("full", full, device, (None,))
+    _check("code", code, torch.device("cpu"), (2, None))
+    _check("bank", bank, device, (None, pw))
+    _check("dyn", dyn, device, (None, pw))
+    _check("sparse_rows", sparse_rows, device, (None, pw))
+    if not 0 <= n_instr <= code.shape[1]:
+        raise ValueError(f"n_instr {n_instr} outside [0, {code.shape[1]}]")
+    if not 1 <= n_regs <= MAX_REGS:
+        raise ValueError(f"n_regs {n_regs} outside [1, {MAX_REGS}]")
+    if min(bank.shape[0], dyn.shape[0], sparse_rows.shape[0]) < 1:
+        raise ValueError("bank, dyn and sparse_rows need one row at least")
+    return pw
 
 
 def _code_block(code: torch.Tensor, n_instr: int,
@@ -427,26 +445,246 @@ def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
 def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
                    dyns: list, sparse_rows: list, fulls: list,
                    n_regs: int, segments=None) -> tuple[list, torch.Tensor]:
-    """vm_run on every word shard: shard d's bank [R, PW/D], dyn rows, sparse
-    rows and full mask lie on its device, and K1 runs there on that device's
-    current stream (the VM is word-local). The code block (code and segment
-    starts) is copied once to each distinct device. Every shard's EMIT
-    counts hold the popcount of its own words at a query's last EMIT in each
-    segment, so their sum, taken on the first shard's device, is the global
-    count (the psum of pallas_kernels.py:763). Returns (reg[0] words per
-    shard, counts [4096] int32)."""
+    """vm_run on every word shard: shard d's bank [R, PW_d], dyn rows, sparse
+    rows and full mask lie on its device (the VM is word-local; widths may
+    differ between shards). Every shard's EMIT counts hold the popcount of
+    its own words at a query's last EMIT in each segment, so their sum is
+    the global count (the psum of pallas_kernels.py:763). On the cards K6
+    (csrc/vm_run_sharded.cu) runs once per distinct card over all of its
+    shards, on that card's current stream, and sums their counts there; the
+    cards' sums are then added on the first shard's device. A single shard
+    runs K1 (vm_run). Returns (reg[0] words per shard, counts [4096]
+    int32)."""
     devices = _shard_devices(fulls, banks, dyns, sparse_rows)
     starts = _segment_starts(segments, n_instr)
-    list_cap = _list_cap(starts)
-    blocks = {}  # the code block, uploaded once per distinct device
-    words, counts = [], []
     for bank, dyn, rows, full in zip(banks, dyns, sparse_rows, fulls):
-        shard_words, shard_counts = _vm_run(code, n_instr, bank, dyn, rows,
-                                            full, n_regs, starts, list_cap,
-                                            blocks)
-        words.append(shard_words)
-        counts.append(shard_counts)
-    VM_RUN_SHARDED.add(plain=devices[0].type == "cpu")
+        _check_vm(code, n_instr, bank, dyn, rows, full, n_regs)
+    if devices[0].type == "cpu":
+        return vm_run_sharded_plain(code, n_instr, banks, dyns, sparse_rows,
+                                    fulls, n_regs, starts)
+    if devices[0].type != "cuda":
+        raise ValueError(f"vm_run_sharded: no kernel for device {devices[0]}")
+    if len(fulls) == 1:
+        words, counts = _vm_run(code, n_instr, banks[0], dyns[0],
+                                sparse_rows[0], fulls[0], n_regs, starts,
+                                _list_cap(starts), {})
+        return [words], counts
+    return _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls,
+                         n_regs, starts, devices)
+
+
+# K6's shard table: int64 fields per shard, as csrc/vm_run_sharded.cu's
+# Shard (bank, its rows, dyn, its rows, sparse rows, their count, full,
+# words, width, unused)
+SHARD_FIELDS = 10
+# K6's aux word per instruction: 1 + a counted EMIT's range-local slot,
+# the first instruction of a segment, the destination's byte offset
+K6_SLOT_MASK = 0x1FFF
+K6_SEG_START = 1 << 13
+K6_DST_SHIFT = 14
+# warps a K6 launch aims at per SM: about six times the 20 its wide form
+# keeps resident at once, so the ranges stay short enough for the SMs to
+# finish together (the best of 32-256 at phase 8a's batch on an H100,
+# scripts/torch_vm_ab.py); the wide form once it fills every SM's 20
+K6_WARPS_PER_SM = 128
+K6_RESIDENT_WARPS = 20
+
+
+class K6Program(NamedTuple):
+    """A program as K6 runs it (k6_program): per instruction its operand,
+    packed word, register offsets and aux word (int32 [n_instr] each; see
+    csrc/vm_run_sharded.cu), the ranges' first instructions and n_instr
+    (range_lo [n_ranges + 1]), each range's counted slots
+    (range_slots[slot_off[r]:slot_off[r + 1]]), the most slots of a range,
+    and whether reg[0] comes out zero (no instruction, or an empty last
+    segment)."""
+
+    opers: np.ndarray
+    specs: np.ndarray
+    regw: np.ndarray
+    aux: np.ndarray
+    range_lo: np.ndarray
+    slot_off: np.ndarray
+    range_slots: np.ndarray
+    max_slots: int
+    zero_words: bool
+
+
+def k6_program(code: torch.Tensor, n_instr: int, starts: np.ndarray,
+               n_ranges: int, n_regs: int, lane_words: int) -> K6Program:
+    """The first `n_instr` instructions of `code` [2, L] in segments
+    (`starts`, checked) laid out for K6 with `lane_words` words a lane:
+    consecutive non-empty segments grouped into at most `n_ranges` ranges
+    by the window of n_instr / n_ranges instructions their first
+    instruction falls in; each segment's first instruction marked
+    K6_SEG_START; registers ra and rb (clamped to n_regs - 1) and the
+    destination (clamped to the trash register n_regs) as byte offsets in a
+    warp's register file of 128 lane_words bytes a register; each
+    EMIT_COUNT that counts (its operand a slot by the XLA scatter's rule,
+    negatives in [-4096, 0) wrapped, and no later EMIT of its segment to
+    the same slot, which would set it again) given 1 + its slot's index
+    among its range's distinct slots."""
+    host = code.numpy()
+    opers, specs = host[0, :n_instr], host[1, :n_instr]
+    stride = 128 * lane_words
+    regw = (np.minimum((specs >> WIRE_RA_SHIFT) & 0x3F, n_regs - 1) * stride
+            | np.minimum((specs >> WIRE_RB_SHIFT) & 0x3F, n_regs - 1)
+            * (stride << 16))
+    aux = np.minimum(specs & WIRE_DST_MASK, n_regs) * (stride << K6_DST_SHIFT)
+    seg_lo = starts[:-1][starts[:-1] < starts[1:]]
+    aux[seg_lo] |= K6_SEG_START
+    window = seg_lo // max(-(-n_instr // max(n_ranges, 1)), 1)
+    first = np.ones(seg_lo.shape[0], dtype=bool)
+    first[1:] = window[1:] != window[:-1]
+    range_lo = np.append(seg_lo[first], np.int32(n_instr))
+    if not seg_lo.size:
+        range_lo = np.zeros(2, dtype=np.int32)  # one empty range
+    n_out = range_lo.shape[0] - 1
+    emits = np.flatnonzero((specs >> WIRE_OP_SHIFT) & 0x3 == EMIT_COUNT)
+    slots = opers[emits]
+    slots = np.where(slots < 0, slots + MAX_BATCH_QUERIES, slots)
+    if slots.size and not 0 <= slots.min() <= slots.max() < MAX_BATCH_QUERIES:
+        keep = (slots >= 0) & (slots < MAX_BATCH_QUERIES)
+        emits, slots = emits[keep], slots[keep]
+    rng = np.searchsorted(range_lo, emits, side="right") - 1
+    if not slots.size or np.bincount(slots).max() <= 1:
+        # every slot once (a batch's queries): each EMIT counts, and the
+        # ranges' slots are the EMITs in order
+        slot_off = np.searchsorted(rng, np.arange(n_out + 1))
+        local = np.arange(1, emits.shape[0] + 1) - slot_off[rng]
+        range_slots = slots
+    else:
+        # a segment's last EMIT per slot, first seen from the end
+        seg = np.searchsorted(seg_lo, emits, side="right") - 1
+        _, last = np.unique((seg * MAX_BATCH_QUERIES + slots)[::-1],
+                            return_index=True)
+        emits, slots = emits[::-1][last], slots[::-1][last]
+        rng = rng[::-1][last]
+        keys, local = np.unique(rng * MAX_BATCH_QUERIES + slots,
+                                return_inverse=True)
+        slot_off = np.searchsorted(keys // MAX_BATCH_QUERIES,
+                                   np.arange(n_out + 1))
+        local = local.reshape(-1) - slot_off[rng] + 1
+        range_slots = keys % MAX_BATCH_QUERIES
+    aux[emits] |= local.astype(np.int32)
+    return K6Program(
+        opers=opers, specs=specs, regw=regw, aux=aux, range_lo=range_lo,
+        slot_off=slot_off.astype(np.int32),
+        range_slots=range_slots.astype(np.int32),
+        max_slots=int((slot_off[1:] - slot_off[:-1]).max()),
+        zero_words=bool(n_instr == 0 or starts[-2] == n_instr))
+
+
+def shard_table(devices: list, shards: list) -> tuple[list, np.ndarray]:
+    """K6's table of shards grouped by device in first-seen order: for each
+    distinct device (device, its first row, its shards' indices), and the
+    table int64 [n_shards, SHARD_FIELDS], one row per shard in that order.
+    `shards[d]` is shard d's (bank, bank rows, dyn, dyn rows, sparse rows,
+    their count, full, words, width): pointers and counts as ints."""
+    for shard in shards:
+        if max(shard[1], shard[3], shard[5]) >= 1 << 31 or shard[8] >= 1 << 30:
+            raise ValueError("K6 takes row counts under 2^31 and shard "
+                             "widths under 2^30 words")
+    groups: dict = {}
+    for index, device in enumerate(devices):
+        groups.setdefault(device, []).append(index)
+    order = [index for members in groups.values() for index in members]
+    table = np.zeros((len(order), SHARD_FIELDS), dtype=np.int64)
+    table[:, :SHARD_FIELDS - 1] = np.asarray([shards[i] for i in order],
+                                             dtype=np.int64)
+    out, row = [], 0
+    for device, members in groups.items():
+        out.append((device, row, members))
+        row += len(members)
+    return out, table
+
+
+def k6_block(table: np.ndarray, program: K6Program,
+             pin: bool) -> tuple[torch.Tensor, dict]:
+    """K6's inputs for every card as one int32 host block (pinned with
+    `pin`, for a copy that does not wait for the card), and the byte offset
+    of each part: the shard table at 0 (8-byte aligned), then the operands,
+    packed words, register offsets and aux words, range_lo, slot_off and
+    range_slots."""
+    parts = (("shards", table.view(np.int32).reshape(-1)),
+             ("opers", program.opers), ("specs", program.specs),
+             ("regw", program.regw), ("aux", program.aux),
+             ("range_lo", program.range_lo),
+             ("slot_off", program.slot_off),
+             ("range_slots", program.range_slots))
+    offsets, size = {}, 0
+    for name, part in parts:
+        offsets[name] = 4 * size
+        size += part.shape[0]
+    block = torch.empty(size, dtype=torch.int32, pin_memory=pin)
+    host = block.numpy()
+    for name, part in parts:
+        host[offsets[name] // 4: offsets[name] // 4 + part.shape[0]] = part
+    return block, offsets
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls, n_regs,
+                  starts, devices) -> tuple[list, torch.Tensor]:
+    """vm_run_sharded's card route: K6 once per distinct card over all of
+    its shards, into one zeroed [4096] counts buffer per card (sharing one
+    allocation with the card's words), launched on every card before the
+    cards' counts are summed on devices[0]."""
+    lib = load_library()
+    widths = [full.shape[0] for full in fulls]
+    members: dict = {}
+    for d, device in enumerate(devices):
+        members.setdefault(device, []).append(d)
+    n_sm = min(map(_sm_count, members))
+    target = K6_WARPS_PER_SM * n_sm
+    n_live = max(int(np.count_nonzero(starts[1:] > starts[:-1])), 1)
+    # wide (8 words a lane) once the card with the fewest word blocks can
+    # give every SM the warps it holds at once; ranges enough for that
+    # card's warps to reach the target
+    n_wblocks = {card: sum(-(-widths[d] // 256) for d in ds)
+                 for card, ds in members.items()}
+    wide = min(n_wblocks.values()) * n_live >= K6_RESIDENT_WARPS * n_sm
+    if not wide:
+        n_wblocks = {card: sum(-(-widths[d] // 32) for d in ds)
+                     for card, ds in members.items()}
+    n_ranges = min(n_live, -(-target // max(min(n_wblocks.values()), 1)))
+    program = k6_program(code, n_instr, starts, n_ranges, n_regs,
+                         8 if wide else 1)
+    words, counts = [None] * len(fulls), []
+    for card, ds in members.items():
+        buf = torch.empty(MAX_BATCH_QUERIES + sum(widths[d] for d in ds),
+                          dtype=torch.int32, device=card)
+        counts.append(buf[:MAX_BATCH_QUERIES].zero_())
+        for d, part in zip(ds, buf[MAX_BATCH_QUERIES:].split(
+                [widths[d] for d in ds])):
+            words[d] = part
+    groups, table = shard_table(devices, [
+        (bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
+         rows.data_ptr(), rows.shape[0], full.data_ptr(), out.data_ptr(), pw)
+        for bank, dyn, rows, full, out, pw in zip(
+            banks, dyns, sparse_rows, fulls, words, widths)])
+    block, offsets = k6_block(table, program, pin=True)
+    # 16-byte loads where every row, mask and output is 16-byte aligned
+    aligned = not ((table[:, [0, 2, 4, 6, 7, 8]] * [1, 1, 1, 1, 1, 4])
+                   % 16).any()
+    for (card, row, ds), card_counts in zip(groups, counts):
+        on_card = block.to(card, non_blocking=True)
+        base = on_card.data_ptr()
+        with torch.cuda.device(card):
+            err = lib.lapis_vm_run_sharded(
+                base + 8 * SHARD_FIELDS * row, len(ds),
+                base + offsets["opers"], n_instr, base + offsets["range_lo"],
+                base + offsets["slot_off"], base + offsets["range_slots"],
+                program.range_lo.shape[0] - 1, 8 if wide else 1,
+                int(wide and aligned), n_wblocks[card], program.max_slots,
+                n_regs, int(program.zero_words), card_counts.data_ptr(),
+                torch.cuda.current_stream(card).cuda_stream)
+        _raise_on(err, "vm_run_sharded")
+        VM_RUN_SHARDED.add()
     return words, reduce_sum(counts, devices[0])
 
 

@@ -30,9 +30,10 @@ from ..testing import sample_count_queries, synthetic_database
 from .shards import resolve
 
 # the kernels the sharded engine's routes must reach, directly or through
-# the sharded wrappers
-ROUTE_KERNELS = (kernels.VM_RUN, kernels.VM_RUN_SHARDED,
-                 kernels.MUTATION_COUNTS, kernels.MUTATION_COUNTS_SHARDED,
+# the sharded wrappers; besides, the VM's: on the cards K6 where the engine
+# has several shards and K1 where it has one, on the CPU the plain versions
+# of both (vm_run_sharded_plain runs vm_run_plain per shard)
+ROUTE_KERNELS = (kernels.MUTATION_COUNTS, kernels.MUTATION_COUNTS_SHARDED,
                  kernels.SPARSE_COUNTS, kernels.DENSIFY_INTO_POOL)
 
 
@@ -113,7 +114,10 @@ def dryrun_multichip(devices) -> dict:
     launched = {name: (after[name][0] - before[name][0],
                        after[name][1] - before[name][1]) for name in after}
     on_card = devices[0].type == "cuda"
-    for k in ROUTE_KERNELS:
+    vm_kernels = ((kernels.VM_RUN, kernels.VM_RUN_SHARDED) if not on_card
+                  else (kernels.VM_RUN_SHARDED,) if len(devices) > 1
+                  else (kernels.VM_RUN,))
+    for k in ROUTE_KERNELS + vm_kernels:
         kernel_runs, plain_runs = launched[k.name]
         assert (kernel_runs if on_card else plain_runs) > 0, \
             f"{k.name} never reached"

@@ -383,7 +383,8 @@ def test_backend_follows_the_device():
 @pytest.mark.cuda
 def test_worker_on_the_card(tmp_path):
     """One rank over NCCL with 4 shards on the first card: the oracle's
-    RESULT, and K1 and K2 launched with no plain version."""
+    RESULT, and K6 (once for the card's four shards, no K1) and K2
+    launched with no plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     (argv,) = _worker_argvs(tmp_path, 1, 4, "cuda:0")
@@ -392,6 +393,7 @@ def test_worker_on_the_card(tmp_path):
     assert f"RESULT count={count} mut={mut}" in out
     (rank,) = _ranks_json(tmp_path, 1)
     assert rank["backend"] == "nccl"
-    assert rank["launches"]["vm_run"] == 4
+    assert rank["launches"]["vm_run_sharded"] == 1
+    assert rank["launches"]["vm_run"] == 0
     assert rank["launches"]["mutation_counts"] == 4
     assert not any(rank["plain"].values()), rank["plain"]

@@ -175,8 +175,8 @@ def test_dryrun_multichip_on_four_cpu_shards():
 @pytest.mark.cuda
 def test_step_on_the_card_equals_the_plain_versions(inputs):
     """The step on four shards of the first card: the words, count and
-    segment counts equal the CPU step's (the plain versions), and K1 and
-    K2 launched."""
+    segment counts equal the CPU step's (the plain versions), and K6 (one
+    launch for the card's four shards, no K1) and K2 launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     bank, full, programs = inputs
@@ -189,7 +189,8 @@ def test_step_on_the_card_equals_the_plain_versions(inputs):
             np.testing.assert_array_equal(got[0], want[0])
             assert got[1] == want[1]
             np.testing.assert_array_equal(got[2], want[2])
-    assert kernels.VM_RUN.launches > 0 and kernels.MUTATION_COUNTS.launches > 0
+    assert kernels.VM_RUN_SHARDED.launches > 0 and kernels.VM_RUN.launches == 0
+    assert kernels.MUTATION_COUNTS.launches > 0
 
 
 @pytest.mark.cuda

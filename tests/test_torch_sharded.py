@@ -8,9 +8,11 @@ window-local densify to vm._densify_one with w_off, the entry-split sparse
 counts to _sparse_mutation_counts_sharded_jit, and the sharded engine, with
 4 and 8 shards, to the JAX mesh engine and the host oracle on both tiers and
 every pool route. Each package serves its own corpus from the same seed and
-parses the queries itself. Every value is an integer or a word: the
-tolerance is equality. The CUDA launches are held to the plain versions on the card
-(marked `cuda`)."""
+parses the queries itself. K6's host layout (ranges of whole segments,
+register offsets, range-local EMIT slots, the shard table and block) is
+held to the plain sharded VM through a CPU emulation of the kernel. Every
+value is an integer or a word: the tolerance is equality. The CUDA
+launches are held to the plain versions on the card (marked `cuda`)."""
 
 import json
 
@@ -29,6 +31,7 @@ from lapis_silo_tpu.ops import vm as ref_vm
 from lapis_silo_tpu.parallel.mesh import make_mesh
 from lapis_silo_tpu.query.engine import Query as RefQuery
 from lapis_silo_torch.ops import kernels, reductions, vm
+from lapis_silo_torch.ops.words import popcount
 from lapis_silo_torch.ops.device_engine import (
     DeviceEngine, build_state, state_from_reference,
 )
@@ -206,6 +209,182 @@ def test_sharded_wrappers_check_their_shards():
         (0, 1), (0, 1), (0, 2), (1, 2), (1, 2), (1, 3), (2, 3), (2, 3)]
     counts = reduce_sum([torch.tensor([1, 2], dtype=torch.int32)] * 3, CPU)
     assert counts.dtype == torch.int32 and counts.tolist() == [3, 6]
+
+
+# -- (a2) K6's layout on the host --------------------------------------------
+
+A, B, C = "card a", "card b", "card c"  # device keys: any hashable serves
+
+
+def _fake_shard(d, n_rows=89709, width=None):
+    """Shard d's (bank, rows, dyn, rows, sparse, rows, full, words, width)
+    with fake pointers past 2^40 and a width of its own."""
+    ptr = [(1 << 40) * (d + 1) + 4096 * f for f in range(5)]
+    return (ptr[0], n_rows, ptr[1], 3, ptr[2], 2, ptr[3], ptr[4],
+            523 + d if width is None else width)
+
+
+@pytest.mark.parametrize("devices,groups", [
+    ([A, A, B, B], [(A, 0, [0, 1]), (B, 2, [2, 3])]),
+    ([A, B, A], [(A, 0, [0, 2]), (B, 2, [1])]),
+    ([B, A, C, A, B], [(B, 0, [0, 4]), (A, 2, [1, 3]), (C, 4, [2])]),
+    ([A] * 4, [(A, 0, [0, 1, 2, 3])]),
+])
+def test_shard_table_groups_shards_by_card_in_first_seen_order(devices,
+                                                               groups):
+    """Fake device keys and pointers: the shards grouped by card in
+    first-seen order, each row the shard's pointers, row counts and own
+    width (ragged across shards); in K6's block the table starts at 0
+    (8-byte aligned), the code follows it, and every part reads back as
+    packed."""
+    shards = [_fake_shard(d) for d in range(len(devices))]
+    got, table = kernels.shard_table(devices, shards)
+    assert got == groups
+    order = [d for _device, _row, members in got for d in members]
+    assert table.dtype == np.int64
+    assert table.shape == (len(devices), kernels.SHARD_FIELDS)
+    for row, d in enumerate(order):
+        assert tuple(table[row, :-1].tolist()) == shards[d]
+        assert table[row, -1] == 0
+    rng = np.random.default_rng(len(devices))
+    ops, opers, specs = _program(rng, 30, 8, wild=True)
+    n_instr = vm._round_instr(len(ops))
+    program = kernels.k6_program(_t(vm.pack_code_array(64, ops, opers, specs)),
+                                 n_instr, _random_segments(rng, n_instr, 5), 3,
+                                 8, 8)
+    block, offsets = kernels.k6_block(table, program, pin=False)
+    assert offsets["shards"] == 0
+    assert offsets["opers"] == 8 * kernels.SHARD_FIELDS * len(devices)
+    host = block.numpy()
+    parts = list(offsets.items())
+    ends = [offset for _name, offset in parts[1:]] + [4 * host.size]
+    read = {name: host[offset // 4: end // 4]
+            for (name, offset), end in zip(parts, ends)}
+    np.testing.assert_array_equal(read["shards"].view(np.int64).reshape(
+        table.shape), table)
+    for name in ("opers", "specs", "regw", "aux", "range_lo", "slot_off",
+                 "range_slots"):
+        np.testing.assert_array_equal(read[name], getattr(program, name))
+
+
+@pytest.mark.parametrize("shard", [_fake_shard(0, n_rows=1 << 31),
+                                   _fake_shard(0, width=1 << 30)])
+def test_shard_table_refuses_what_k6_cannot_address(shard):
+    """K6 addresses rows with 32-bit counts and byte strides: a row count
+    from 2^31 or a width from 2^30 words is refused."""
+    with pytest.raises(ValueError, match="K6 takes"):
+        kernels.shard_table([A, A], [shard, _fake_shard(1)])
+
+
+def _k6_emulate(code, n_instr, shards, n_regs, starts, n_ranges,
+                lane_words=8):
+    """K6 as k6_program lays the program out and the kernel runs it, in
+    plain torch on the CPU, per shard (bank, dyn, sparse, full): each
+    range's instructions in order, the registers zeroed at each
+    K6_SEG_START, ra, rb and the destination taken from the host's byte
+    offsets (128 lane_words bytes a register), the counted EMITs'
+    popcounts added into the range's slots and those into the counts;
+    reg[0] after the last range, or zeros where the program says so."""
+    program = kernels.k6_program(code, n_instr, starts, n_ranges, n_regs,
+                                 lane_words)
+    stride = 128 * lane_words
+    counts = torch.zeros(vm.MAX_BATCH_QUERIES, dtype=torch.int32)
+    words = []
+    for bank, dyn, sparse, full in shards:
+        rows = {vm.B_BANK: bank, vm.B_DYN: dyn, vm.B_SPARSE: sparse}
+        regs = torch.zeros((n_regs + 1, full.shape[0]), dtype=torch.int32)
+        for r in range(program.range_lo.shape[0] - 1):
+            acc = torch.zeros(max(program.max_slots, 1), dtype=torch.int32)
+            for i in range(program.range_lo[r], program.range_lo[r + 1]):
+                oper, spec, regw, aux = (int(part[i]) for part in (
+                    program.opers, program.specs, program.regw, program.aux))
+                if aux & kernels.K6_SEG_START:
+                    regs.zero_()
+                a = regs[(regw & 0xFFFF) // stride]
+                bsrc = (spec >> vm.WIRE_BSRC_SHIFT) & 0xF
+                if bsrc == vm.B_REG:
+                    b = regs[(regw >> 16) // stride]
+                elif bsrc in rows:
+                    b = rows[bsrc][min(max(oper, 0), rows[bsrc].shape[0] - 1)]
+                else:
+                    b = full if bsrc == vm.B_FULL else torch.zeros_like(full)
+                mode = (spec >> vm.WIRE_MODE_SHIFT) & 0xF
+                val = (b if mode == vm.M_MOVB else a & b if mode == vm.M_AND
+                       else a | b if mode == vm.M_OR
+                       else a ^ b if mode == vm.M_XOR else a & (b ^ full))
+                if aux & kernels.K6_SLOT_MASK:
+                    acc[(aux & kernels.K6_SLOT_MASK) - 1] += popcount(a).sum()
+                regs[(aux >> kernels.K6_DST_SHIFT) // stride] = val
+            lo, hi = program.slot_off[r], program.slot_off[r + 1]
+            counts[torch.from_numpy(program.range_slots[lo:hi]).long()] += (
+                acc[:hi - lo])
+        words.append(torch.zeros_like(full) if program.zero_words
+                     else regs[0].clone())
+    return words, counts, program
+
+
+@pytest.mark.parametrize("n_shards,n_regs,pw,wild,n_cuts", [
+    (2, 1, 64, True, 6), (3, 8, 200, True, 11), (4, 32, 130, True, 0),
+    (3, 16, 97, False, 25), (2, 4, 33, True, 40), (4, 8, 256, False, 60)])
+@pytest.mark.parametrize("n_ranges,lane_words", [(1, 8), (3, 1), (3, 8),
+                                                 (1000, 8)])
+def test_k6_layout_matches_plain_sharded_vm(n_shards, n_regs, pw, wild,
+                                            n_cuts, n_ranges, lane_words):
+    """The layout K6 runs (ranges of whole segments, the registers zeroed at
+    each segment's start, a segment's last EMIT per slot counted once into
+    range-local slots) gives the plain sharded VM's words and counts, over
+    shards of ragged widths: random segments with empty and one-instruction
+    ones, EMIT slots repeated inside and across segments, negative and out
+    of range (or every slot once, as a batch has it), n_regs 1 and
+    MAX_REGS (32), both lane forms (their register strides), and the
+    range count that one launch takes, down to one range and up to one per
+    segment."""
+    rng = np.random.default_rng(n_shards * 1000 + pw + n_ranges)
+    bank, dyn, sparse, full = _bank(rng, pw)
+    ops, opers, specs = _program(rng, 50, n_regs, wild)
+    operands = np.asarray(opers)
+    if wild:  # else every slot once, as in a batch
+        emits = np.asarray(ops) == vm.EMIT_COUNT
+        operands[emits] = rng.choice([0, 1, 2, 4095, 4096, -1, -4096, -4097],
+                                     size=int(emits.sum()))
+    n_instr = vm._round_instr(len(ops))
+    code = _t(vm.pack_code_array(128, ops, operands.tolist(), specs))
+    starts = (_random_segments(rng, n_instr, n_cuts) if n_cuts
+              else np.asarray([0, n_instr], dtype=np.int32))
+    shards = list(zip(*[[_t(part) for part in np.array_split(a, n_shards,
+                                                             axis=-1)]
+                        for a in (bank, dyn, sparse, full)]))
+    words, counts, program = _k6_emulate(code, n_instr, shards, n_regs,
+                                         starts, n_ranges, lane_words)
+    assert program.range_lo.shape[0] - 1 <= max(n_ranges, 1)
+    want_words, want_counts = kernels.vm_run_sharded_plain(
+        code, n_instr, *map(list, zip(*shards)), n_regs, starts)
+    assert torch.equal(counts, want_counts)
+    for got, want in zip(words, want_words):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("starts", [[0, 0], [0, 8, 8], [0, 3, 8, 8],
+                                    [0, 1, 2, 3, 4, 5, 6, 7, 8]])
+def test_k6_layout_edges(starts):
+    """No instruction at all, an empty last segment (reg[0] comes out
+    zero), and one-instruction segments: the layout still equals the plain
+    VM."""
+    rng = np.random.default_rng(len(starts))
+    bank, dyn, sparse, full = _bank(rng, 40)
+    n_instr = starts[-1]
+    ops = [vm.ALU, vm.EMIT_COUNT] * 4
+    opers = [1, 7, 2, 7, 3, 9, 0, 7]
+    specs = [(i % 3) | (vm.M_OR << 24) | (vm.B_BANK << 28) for i in range(8)]
+    code = _t(vm.pack_code_array(16, ops, opers, specs))
+    starts = np.asarray(starts, dtype=np.int32)
+    shards = [tuple(_t(a) for a in (bank, dyn, sparse, full))]
+    words, counts, program = _k6_emulate(code, n_instr, shards, 4, starts, 2)
+    assert program.zero_words == (n_instr == 0 or starts[-2] == n_instr)
+    want_words, want_counts = kernels.vm_run_plain(
+        code, n_instr, *shards[0], 4, starts)
+    assert torch.equal(words[0], want_words)
+    assert torch.equal(counts, want_counts)
 
 
 # -- (b) window-local densify -----------------------------------------------
@@ -598,8 +777,8 @@ def cuda_devices():
 
 @pytest.mark.cuda
 def test_sharded_kernels_match_plain_on_card(cuda_devices):
-    """vm_run_sharded (one segment and random segments) and
-    mutation_counts_sharded (K1 and K2 per shard) against their plain
+    """vm_run_sharded (K6; one segment and random segments) and
+    mutation_counts_sharded (K2 per shard) against their plain
     versions, and the windowed K4/K5 against theirs,
     with shard windows that straddle partitions and a ragged local width."""
     rng = np.random.default_rng(3)
@@ -643,6 +822,74 @@ def test_sharded_kernels_match_plain_on_card(cuda_devices):
                                              lens, slots, shard * local)
         assert torch.equal(pool, want)
     torch.cuda.synchronize()
+
+
+def _on_cards(pattern):
+    """One device per entry of `pattern`, card pattern[d] mod the visible
+    cards (so the pattern's repeats hold on a one-card machine too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return [torch.device("cuda", p % torch.cuda.device_count())
+            for p in pattern]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [(0, 0), (0, 1, 0), (0, 0, 1, 1),
+                                     (0, 1, 2, 3)])
+@pytest.mark.parametrize("n_regs,wild", [(1, True), (8, False),
+                                         (vm.MAX_REGS, True)])
+def test_k6_matches_plain_on_card(pattern, n_regs, wild):
+    """K6 against vm_run_sharded_plain for D in {2, 3, 4} with repeated
+    cards and shards of ragged widths (3 x 1,571 words split unevenly):
+    wild programs (out-of-range operands, repeated, negative and dropped
+    EMIT slots, every mode and b-source), as one long segment (its code
+    streams through several tiles) and in random segments (empty and
+    one-instruction ones), and a batch of 300 segments that takes the wide
+    form. Each call launches K6 once per distinct card and K1 never."""
+    devices = _on_cards(pattern)
+    rng = np.random.default_rng(len(pattern) * 100 + n_regs)
+    pw = 3 * 1571
+    bank, dyn, sparse, full = _bank(rng, pw)
+    ops, opers, specs = _program(rng, 1200, n_regs, wild)
+    n_instr = vm._round_instr(len(ops))
+    code = _t(vm.pack_code_array(2048, ops, opers, specs))
+    args = [[_t(part).to(device) for part, device in zip(
+        np.array_split(a, len(devices), axis=-1), devices)]
+        for a in (bank, dyn, sparse, full)]
+    for segments in (None, _random_segments(rng, n_instr, 40),
+                     _random_segments(rng, n_instr, 299)):
+        kernels.reset_counts()
+        words, counts = kernels.vm_run_sharded(code, n_instr, *args, n_regs,
+                                               segments)
+        assert kernels.VM_RUN_SHARDED.launches == len(set(devices))
+        assert kernels.VM_RUN.launches == 0
+        assert not any(k.plain_launches for k in kernels.KERNELS)
+        plain_words, plain_counts = kernels.vm_run_sharded_plain(
+            code, n_instr, *args, n_regs, segments)
+        assert counts.device == devices[0]
+        assert torch.equal(counts, plain_counts)
+        for got, want, device in zip(words, plain_words, devices):
+            assert got.device == device and torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_one_shard_on_card_runs_k1():
+    """A single shard launches K1 as vm_run does, and K6 not at all."""
+    (device,) = _on_cards((0,))
+    rng = np.random.default_rng(5)
+    bank, dyn, sparse, full = (_t(a).to(device) for a in _bank(rng, 523))
+    ops, opers, specs = _program(rng, 40, 8, wild=True)
+    n_instr = vm._round_instr(len(ops))
+    code = _t(vm.pack_code_array(128, ops, opers, specs))
+    segments = _random_segments(rng, n_instr, 5)
+    kernels.reset_counts()
+    (words,), counts = kernels.vm_run_sharded(code, n_instr, [bank], [dyn],
+                                              [sparse], [full], 8, segments)
+    assert (kernels.VM_RUN.launches, kernels.VM_RUN_SHARDED.launches) == (1, 0)
+    want_words, want_counts = kernels.vm_run_plain(code, n_instr, bank, dyn,
+                                                   sparse, full, 8, segments)
+    assert torch.equal(words, want_words) and torch.equal(counts, want_counts)
 
 
 @pytest.mark.cuda
