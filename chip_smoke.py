@@ -18,14 +18,19 @@ Phases, one line each or more (the last line is the JSON verdict):
      pool slots including the scratch row, densify windows of word shards,
      the VM in one segment and in random segments, also over 4 word shards
      and over 3 of ragged widths,
-     the group-count kernel K9 at every bucket edge with padding and
-     negative codes, all bits set and clear, and shard windows) and at the
+     the group-count kernel K9 for every code type (uint8, int16, int32)
+     at every bucket edge with padding and negative codes, all bits set and
+     clear, on one shard, on shard windows, on 3 shards of ragged widths
+     round-robin on the cards and on 4 of one card) and at the
      main paths' shapes (the 512-query batch in its per-query segments, and
      as one segment), with both times there (for the VM also its wrapper's
      wall time per call, host time included) and each kernel's bound, the
      larger of its bytes over the HBM rate and its operations over the peak
      rate (K9 and the compact extraction at phase 5's shapes in its set-up,
-     the two-tier shapes in phase 7's, the sharded ones in phase 8a's, the
+     the two-tier shapes in phase 7's, the sharded ones in phase 8a's; K9
+     there by date over every sequence, the 6% Details filter and one
+     mutation, beside the split of one group-by query: evaluate_device, K9,
+     the copy to the host, the host's ordering and decoding; the
      windowed and chunked ones in 8b's; there the densify kernels also take
      their wall time per call through the engine's route, a pool-update
      chunk's included, beside zero_() of a block of the same shape);
@@ -39,9 +44,12 @@ Phases, one line each or more (the last line is the JSON verdict):
      of about 11.8 GB on the card): set-up compares the compact extraction
      (evaluate_compact) with evaluate() below and above its cap and times
      it, then times both as whole calls on synthetic words from 131,072 to
-     4,194,304 flat words (COMPACT_MIN_WORDS comes from this), and K9 with its plain version for every group-by column list; then
-     the 64 counts, 8 group-by queries (by date, country, date and country,
-     age), two Details through evaluate_compact (COMPACT_MIN_WORDS set to 0
+     4,194,304 flat words (COMPACT_MIN_WORDS comes from this), and K9 with
+     its plain version for every group-by column list (each list's codes
+     held as uint8); then the 64 counts, 8 group-by queries (by date,
+     country, date and country, age; K9 launched once per query per card,
+     here and in 7, 8a and 8b), two Details through evaluate_compact
+     (COMPACT_MIN_WORDS set to 0
      on the engine: the corpus has fewer flat words; one filter under the
      cap, one over) and two Mutations queries, all equal to the host oracle;
   8a. phase 5's corpus and oracle answers on the word-sharded engine: the
@@ -52,7 +60,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      queries and one Mutations query, all equal to the host oracle;
      vm_run_sharded (K6) and mutation_counts_sharded against their plain
      versions at these shapes, with both times, K6's bound and beside it K1
-     over all 32,768 words in one launch; the compaction and K9 per shard;
+     over all 32,768 words in one launch; the compaction per shard and K9
+     over the 4 shards in one launch per card;
   8c. on the same shards, lapis_silo_torch.parallel.mesh.ShardedQueryStep:
      one program's words, count and 64 segment counts (the main segment's
      start, and a start past the end, clamped) equal to the plain versions
@@ -408,19 +417,31 @@ def details_queries(db) -> list[str]:
                         "filterExpression": f}) for f in (leaf, wide)]
 
 
-def run_groupby(db, queries: list[str], want: list[dict], phase: str) -> None:
+def run_groupby(db, queries: list[str], want: list[dict], phase: str,
+                engine) -> None:
+    """The group-by queries against the oracle's answers, with K9 launched
+    once per query per card of `engine` and its plain version never."""
+    from lapis_silo_torch.ops import kernels
+
+    n_cards = len(engine.shards.distinct)
+    launches = kernels.GROUP_COUNTS.launches
+    plain = kernels.GROUP_COUNTS.plain_launches
     latencies = []
     for query, expected in zip(queries, want):
         t0 = time.perf_counter()
         got = db.execute_query(query)
         latencies.append(time.perf_counter() - t0)
         assert got == expected, query
+    n_launched = kernels.GROUP_COUNTS.launches - launches
+    assert n_launched == len(queries) * n_cards, (n_launched, n_cards)
+    assert kernels.GROUP_COUNTS.plain_launches == plain
     log(phase, f"{len(queries)} group-by queries (by "
         f"{', '.join('+'.join(c) for c in GROUP_BYS)}; every sequence and one "
         f"mutation) equal the host oracle, "
         f"{[len(w['queryResult']) for w in want]} rows; p50 "
         f"{statistics.median(latencies) * 1e3:.3f} ms, max "
-        f"{max(latencies) * 1e3:.3f} ms")
+        f"{max(latencies) * 1e3:.3f} ms; K9 launched {n_launched} times, "
+        f"once per query per card ({n_cards})")
 
 
 def run_details(db, engine, queries: list[str], want: list[dict],
@@ -446,14 +467,11 @@ def run_details(db, engine, queries: list[str], want: list[dict],
             f"the cap of {engine.COMPACT_CAP_WORDS}; {ms:.2f} ms")
 
 
-def compact_and_groupby_kernels(engine, kernels, torch, db, err: dict,
-                                timings: dict, label: str) -> dict:
+def compact_kernels(engine, torch, db, label: str) -> dict:
     """On the engine's shapes: evaluate_compact against evaluate() on the
     card below and above the cap; the compaction's time on the card (torch
-    ops after the VM launch, per shard) and per call; K9 against its plain
-    version for every group-by column list of GROUP_BYS over every sequence
-    (the shards' words and codes), with both times for `date` and the work
-    for its bound. Returns the compaction's numbers."""
+    ops after the VM launch, per shard) and per call. Returns the
+    compaction's numbers."""
     from lapis_silo_torch.ops import reductions
     from lapis_silo_torch.query.engine import Query
 
@@ -472,30 +490,6 @@ def compact_and_groupby_kernels(engine, kernels, torch, db, err: dict,
     full_wall = wall_ms(lambda: engine.evaluate(below), reps=10)
     overflow_wall = wall_ms(lambda: engine.evaluate_compact(above), reps=5)
     sweep = compact_sweep(engine, torch) if label == "5" else None
-    fulls = engine.fulls  # the words of the True filter
-    n_set = sum(int(reductions.popcount_words(f)) for f in fulls)
-    for columns in GROUP_BYS:
-        codes_on, n_groups, _ = engine.group_codes_for(columns)
-        n_bins = next(b for b in engine._GROUP_BUCKETS if b >= n_groups) + 1
-        args = [(f, c, o, engine.n_words, engine.n_partitions, n_bins)
-                for f, c, o in zip(fulls, codes_on, offsets)]
-        for a in args:
-            err["group_counts"] = max(err["group_counts"], max_abs_err(
-                kernels.group_counts(*a), kernels.group_counts_plain(*a)))
-        if columns == ["date"]:
-            n_words = engine.n_flat_words
-            date = (
-                cuda_ms(lambda: [kernels.group_counts(*a) for a in args],
-                        reps=20),
-                cuda_ms(lambda: [kernels.group_counts_plain(*a) for a in args],
-                        reps=2, warmup=1),
-                # the words, the code of each set bit, the partials
-                4 * n_words + 4 * n_set
-                + 4 * engine.n_partitions * n_bins * len(args),
-                n_words + n_set, len(engine.shards.distinct))
-            date_bins = n_bins
-    # the kernels line reports the first (one-card, one-shard) reading
-    timings.setdefault("group_counts", date)
     compact_bound_ms = compact_bound(engine.n_flat_words, cap,
                                      len(engine.shards))[0]
     log(f"{label} compact", f"evaluate_compact equals evaluate() below and "
@@ -505,14 +499,127 @@ def compact_and_groupby_kernels(engine, kernels, torch, db, err: dict,
         f"{compact_bound_ms:.5f} ms, bytes); per call "
         f"{compact_wall:.4f} ms against "
         f"{full_wall:.4f} ms for evaluate() (overflow {overflow_wall:.4f} ms)")
-    log(f"{label} group_counts", f"K9 bit-exact for {len(GROUP_BYS)} column "
-        f"lists over {n_set} set bits on {len(args)} shard(s); by date "
-        f"(G {date_bins}): kernel {date[0]:.4f} ms, plain {date[1]:.2f} ms, "
-        f"bound {bound(*date[2:])[0]:.4f} ms")
     return {"ms": compact_ms, "bound_ms": compact_bound_ms,
             "wall": compact_wall,
             "evaluate_wall": full_wall, "overflow_wall": overflow_wall,
             "words": engine.n_flat_words, "sweep": sweep}
+
+
+def group_work(engine, n_set: int, n_bins: int, code_bytes: int) -> tuple:
+    """(bytes, operations, cards) of a K9 launch over the engine's shards:
+    the words read once, the code of each of the `n_set` set bits read once
+    at `code_bytes`, one [P, G] written per card; a test per word and a bin
+    per set bit."""
+    n_cards = len(engine.shards.distinct)
+    return (4 * engine.n_flat_words + code_bytes * n_set
+            + 4 * engine.n_partitions * n_bins * n_cards,
+            engine.n_flat_words + n_set, n_cards)
+
+
+def groupby_kernels(engine, kernels, torch, db, err: dict, timings: dict,
+                    label: str) -> dict:
+    """On the engine's shapes: K9 (group_counts_sharded, one launch per
+    card over the shards' words and codes) against its plain version for
+    every column list of GROUP_BYS over every sequence, each list's codes
+    held as uint8 (one byte per sequence slot); by date its time on the card
+    and the plain version's over every sequence, over the 6% Details filter
+    and over the one-mutation filter (the kernel's work follows the set
+    bits), each with its bound from 1-byte codes and at int32 codes; then
+    the split of one group-by query (by date over every sequence):
+    db.execute_query's p50, evaluate_device, K9 (the cards' sum inside),
+    the copy to the host, the host's ordering and decoding (group_rows), and
+    the rest (parse, lowering, the action's rows and JSON). Returns the
+    readings."""
+    from lapis_silo_torch.ops import reductions
+    from lapis_silo_torch.ops.device_engine import group_rows
+    from lapis_silo_torch.query.engine import Query
+
+    offsets = engine.shards.offsets
+    for columns in GROUP_BYS:
+        codes_on, n_groups, _ = engine.group_codes_for(columns)
+        assert {c.dtype for c in codes_on} == {torch.uint8}, columns
+        n_bins = next(b for b in engine._GROUP_BUCKETS if b >= n_groups) + 1
+        args = (engine.fulls, codes_on, offsets, engine.n_words,
+                engine.n_partitions, n_bins)
+        err["group_counts"] = max(err["group_counts"], max_abs_err(
+            kernels.group_counts_sharded(*args),
+            kernels.group_counts_sharded_plain(*args)))
+    codes_on, n_groups, decode = engine.group_codes_for(["date"])
+    n_bins = next(b for b in engine._GROUP_BUCKETS if b >= n_groups) + 1
+    filters = {"every sequence": {"type": "True"},
+               "6% Details filter": json.loads(
+                   details_queries(db)[1])["filterExpression"],
+               "one mutation": json.loads(
+                   mutations_queries(db)[0])["filterExpression"]}
+    readings = {}
+    for name, expr in filters.items():
+        words = engine.evaluate_device(Query(json.dumps({
+            "action": {"type": "Aggregated"}, "filterExpression": expr}))
+            .filter)
+        n_set = sum(int(reductions.popcount_words(w)) for w in words)
+        args = (words, codes_on, offsets, engine.n_words, engine.n_partitions,
+                n_bins)
+        err["group_counts"] = max(err["group_counts"], max_abs_err(
+            kernels.group_counts_sharded(*args),
+            kernels.group_counts_sharded_plain(*args)))
+        reading = (
+            cuda_ms(lambda: kernels.group_counts_sharded(*args), reps=50),
+            cuda_ms(lambda: kernels.group_counts_sharded_plain(*args),
+                    reps=2, warmup=1),
+            *group_work(engine, n_set, n_bins, 1))
+        readings[name] = {
+            "set_bits": n_set, "ms": reading[0], "plain_ms": reading[1],
+            "wall_ms": wall_ms(lambda: kernels.group_counts_sharded(*args),
+                               reps=50),
+            "bound_ms": bound(*reading[2:])[0],
+            "bound_int32_ms": bound(*group_work(engine, n_set, n_bins, 4))[0]}
+        if name == "every sequence":
+            # the kernels line reports the first (one-card, one-shard) one
+            timings.setdefault("group_counts", reading)
+    query = groupby_queries(db)[0]  # by date, every sequence
+    want = oracle(db, [query])[0]
+    totals = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        assert db.execute_query(query) == want
+        totals.append((time.perf_counter() - t0) * 1e3)
+    flt = Query(query).filter
+    words = engine.evaluate_device(flt)
+    args = (words, codes_on, offsets, engine.n_words, engine.n_partitions,
+            n_bins)
+    counts = kernels.group_counts_sharded(*args)
+    per_part = counts.cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        group_rows(per_part, n_groups, decode)
+    split = {"execute_query_p50": statistics.median(totals),
+             "evaluate_device": wall_ms(lambda: engine.evaluate_device(flt),
+                                        reps=20),
+             "k9": wall_ms(lambda: kernels.group_counts_sharded(*args),
+                           reps=20),
+             "copy_to_host": wall_ms(lambda: counts.cpu(), reps=20),
+             "order_and_decode": (time.perf_counter() - t0) * 10}
+    split["rest"] = split["execute_query_p50"] - sum(
+        v for k, v in split.items() if k != "execute_query_p50")
+    readings["split"] = split
+    n_cards = len(engine.shards.distinct)
+    log(f"{label} group_counts", f"K9 bit-exact for {len(GROUP_BYS)} column "
+        f"lists (uint8 codes, 1 byte per sequence slot) on "
+        f"{len(engine.shards)} shard(s), {n_cards} card(s), one launch per "
+        f"card; by date (G {n_bins}): " + "; ".join(
+            f"{name} ({r['set_bits']} set bits): kernel {r['ms']:.4f} ms "
+            f"on the card, {r['wall_ms']:.4f} ms wall per call, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms (at "
+            f"int32 codes {r['bound_int32_ms']:.5f} ms)"
+            for name, r in readings.items() if name != "split"))
+    log(f"{label} group-by split", f"by date over every sequence, ms: p50 "
+        f"of db.execute_query {split['execute_query_p50']:.4f}; "
+        f"evaluate_device {split['evaluate_device']:.4f} wall; K9 "
+        f"{split['k9']:.4f} wall (the cards' sum inside); copy to the host "
+        f"{split['copy_to_host']:.4f}; ordering and decoding "
+        f"{split['order_and_decode']:.4f}; the rest (parse, lowering, rows "
+        f"to JSON) {split['rest']:.4f}")
+    return readings
 
 
 def compact_bound(n_words: int, cap: int, n_shards: int = 1) -> tuple:
@@ -757,27 +864,53 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                                              slots, window)
         err["densify_rows_into_pool"] = max(err["densify_rows_into_pool"],
                                             max_abs_err(pool, want))
-    # K9 at every bucket edge (shared-memory bins up to 16,385, device
-    # memory at 2^20 + 1), with padding and negative codes, words all set
-    # and all clear, runs of one code, word counts that are no multiple of a
-    # CTA's block, and the windows of 3 shards across partition edges
-    for n_groups in (65, 1025, 16385, (1 << 20) + 1):
-        for n_parts, part_words in ((1, 1), (3, 1111), (4, 8192)):
-            pw = n_parts * part_words
-            words = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
-            words[: pw // 7] = 0xFFFFFFFF
-            words[pw // 7: pw // 5] = 0
-            codes = rng.integers(-1, n_groups + 1, size=32 * pw).astype(np.int32)
-            codes[: 32 * (pw // 9)] = rng.integers(0, 3)
-            for n_shards in (1, 3):
-                local = pw // n_shards
-                for d in range(n_shards):
-                    args = (dev(words[d * local:(d + 1) * local]),
-                            dev(codes[32 * d * local:32 * (d + 1) * local]),
-                            d * local, part_words, n_parts, n_groups)
+    # K9 for every code type at every bucket edge (its ticket, flush and
+    # device-memory forms), with padding and negative codes, words all set
+    # and all clear, runs of one code, word counts that are no multiple of
+    # a CTA's block: on one shard, on the windows of 3 shards across
+    # partition edges (a launch each), and through group_counts_sharded on
+    # 3 of ragged widths round-robin on the visible cards and on 4 of one
+    # card (a launch per card)
+    n_cards = torch.cuda.device_count()
+    for dtype in kernels.CODE_DTYPES:
+        info = torch.iinfo(dtype)
+        for n_groups in (65, 1025, 16385, (1 << 20) + 1):
+            for n_parts, part_words in ((1, 1), (3, 1111), (4, 8192)):
+                pw = n_parts * part_words
+                words = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
+                words[: pw // 7] = 0xFFFFFFFF
+                words[pw // 7: pw // 5] = 0
+                codes = rng.integers(max(info.min, -1),
+                                     min(info.max, n_groups) + 1, size=32 * pw)
+                codes[: 32 * (pw // 9)] = rng.integers(0, 3)
+                codes = torch.from_numpy(codes).to(dtype)
+                for n_shards in (1, 3):
+                    local = pw // n_shards
+                    for d in range(n_shards):
+                        args = (dev(words[d * local:(d + 1) * local]),
+                                codes[32 * d * local:32 * (d + 1) * local
+                                      ].to(device),
+                                d * local, part_words, n_parts, n_groups)
+                        err["group_counts"] = max(
+                            err["group_counts"], max_abs_err(
+                                kernels.group_counts(*args),
+                                kernels.group_counts_plain(*args)))
+                for bounds, cards in (
+                        ([0, pw // 5, pw // 5 + pw // 3 + 1, pw],
+                         [torch.device(DEVICE, d % n_cards) for d in range(3)]),
+                        (np.linspace(0, pw, 5).astype(int), [device] * 4)):
+                    if np.diff(bounds).min() < 1:
+                        continue
+                    edges = list(zip(bounds, bounds[1:]))
+                    args = ([dev(words[a:b]).to(card)
+                             for (a, b), card in zip(edges, cards)],
+                            [codes[32 * a:32 * b].to(card)
+                             for (a, b), card in zip(edges, cards)],
+                            [int(a) for a, _ in edges], part_words, n_parts,
+                            n_groups)
                     err["group_counts"] = max(err["group_counts"], max_abs_err(
-                        kernels.group_counts(*args),
-                        kernels.group_counts_plain(*args)))
+                        kernels.group_counts_sharded(*args),
+                        kernels.group_counts_sharded_plain(*args)))
     torch.cuda.synchronize()
     return err
 
@@ -914,10 +1047,11 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
 
 
 def phase7(main: MainPath, kernels, torch, device, err: dict,
-           timings: dict) -> dict:
-    """The two-tier deployment: set-up, kernel comparisons at its shapes,
-    then the main path against the host oracle. Returns the corpus (its
-    engine dropped) and the oracle's answers for phase 8b."""
+           timings: dict, groupby: dict) -> dict:
+    """The two-tier deployment: set-up, kernel comparisons at its shapes
+    (K9's readings into `groupby`), then the main path against the host
+    oracle. Returns the corpus (its engine dropped) and the oracle's
+    answers for phase 8b."""
     import lapis_silo_torch
     from lapis_silo_torch.testing import sample_count_queries, synthetic_database
 
@@ -941,6 +1075,8 @@ def phase7(main: MainPath, kernels, torch, device, err: dict,
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     assert engine.n_sparse > 0 and engine.pool_slots > 0, "tier not on"
     timings.update(two_tier_kernels(engine, kernels, torch, err, "7"))
+    groupby["7"] = groupby_kernels(engine, kernels, torch, db, err, timings,
+                                   "7")
 
     counts64 = sample_count_queries(db, 64, seed=1)
     wide = sample_count_queries(db, 512, seed=7)
@@ -1014,7 +1150,7 @@ def two_tier_path(main: MainPath, kernels, engine, answers: dict,
         run_mutations(db, answers["muts"], answers["want_muts"],
                       f"{labels[2]} mutations")
         run_groupby(db, answers["groupby"], answers["want_groupby"],
-                    f"{labels[2]} group-by")
+                    f"{labels[2]} group-by", engine)
         run_details(db, engine, answers["details"], answers["want_details"],
                     f"{labels[2]} details")
         assert db._engine._use_device
@@ -1142,10 +1278,11 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
 
 
 def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
-            timings: dict) -> tuple[str, dict]:
+            timings: dict, groupby: dict) -> tuple[str, dict]:
     """Phase 5's corpus and answers on the sharded engine (the single-device
     engine already dropped), with the sharded kernels, the compaction and
-    K9 compared first. Returns phase 8c's query and its step's results."""
+    K9 compared first (K9's readings into `groupby`). Returns phase 8c's
+    query and its step's results."""
     from lapis_silo_torch.query.engine import Query
     from lapis_silo_torch.testing import sample_count_queries
 
@@ -1155,10 +1292,12 @@ def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
     engine = install_sharded(db, torch, "8a")
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     sharded_kernels(engine, kernels, lowered, muts[0], err, timings)
-    compact_and_groupby_kernels(engine, kernels, torch, db, err, timings, "8a")
+    compact_kernels(engine, torch, db, "8a")
+    groupby["8a"] = groupby_kernels(engine, kernels, torch, db, err, timings,
+                                    "8a")
     with main.phase():
         run_counts(db, *answers["counts"], "8a counts")
-        run_groupby(db, *answers["group-by"], "8a group-by")
+        run_groupby(db, *answers["group-by"], "8a group-by", engine)
         run_details(db, engine, *answers["Details"], "8a details")
         t0 = time.perf_counter()
         assert engine.count_programs(lowered) == want_wide
@@ -2285,12 +2424,13 @@ def main() -> int:
                        ("Details", details_queries(big)),
                        ("Mutations", mutations_queries(big)))}
     log("5 oracle", f"host oracle answered in {time.perf_counter() - t0:.1f} s")
-    compaction = compact_and_groupby_kernels(big_engine, kernels, torch, big,
-                                             err, timings, "5")
+    compaction = compact_kernels(big_engine, torch, big, "5")
+    groupby = {"5": groupby_kernels(big_engine, kernels, torch, big, err,
+                                    timings, "5")}
     assert all(e == 0 for e in err.values()), err
     with main_path.phase():
         run_counts(big, *big_answers["counts"], "5a counts")
-        run_groupby(big, *big_answers["group-by"], "5b group-by")
+        run_groupby(big, *big_answers["group-by"], "5b group-by", big_engine)
         run_details(big, big_engine, *big_answers["Details"], "5b details")
         run_mutations(big, *big_answers["Mutations"], "5c mutations")
         assert big._engine._use_device
@@ -2300,7 +2440,7 @@ def main() -> int:
 
     # 8a: the same corpus on the word-sharded engine; 8d: its pod path
     pod_query, step_results = phase8a(main_path, kernels, torch, big,
-                                      big_answers, err, timings)
+                                      big_answers, err, timings, groupby)
     pod = phase8d(main_path, kernels, torch, big, pod_query, step_results)
     # 9: the same corpus as a snapshot, served over HTTP
     served_answers = {**big_answers,
@@ -2314,7 +2454,7 @@ def main() -> int:
     gc.collect()
 
     # 7: the two-tier deployment, then 8b: the same on the sharded engine
-    answers = phase7(main_path, kernels, torch, device, err, timings)
+    answers = phase7(main_path, kernels, torch, device, err, timings, groupby)
     phase8b(main_path, kernels, torch, answers, err)
     assert all(e == 0 for e in err.values()), err
     del answers
@@ -2330,7 +2470,8 @@ def main() -> int:
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
     log("6 summary", "compaction (torch ops, no kernel) "
-        + json.dumps(compaction) + "; phase 8d " + json.dumps(pod)
+        + json.dumps(compaction) + "; K9 by date and the group-by split "
+        + json.dumps(groupby) + "; phase 8d " + json.dumps(pod)
         + "; phase 9 " + json.dumps(served)
         + "; phase 10 " + json.dumps(ingested) + "; phase 11 "
         + json.dumps(sliced))

@@ -386,6 +386,19 @@ def compact_to_host(words: list[torch.Tensor], offsets: list[int], cap: int,
     return host
 
 
+def group_rows(per_part: np.ndarray, n_groups: int, decode) -> list:
+    """[(decode(g), count)] of the groups with a count, from the per
+    partition counts [P, >= n_groups] of a group-by, in the host path's row
+    order: groups appear when first seen scanning partitions in order,
+    sorted by code within each partition's novel set."""
+    per_part = per_part[:, :n_groups]
+    totals = per_part.sum(axis=0, dtype=np.int64)
+    hits = np.nonzero(totals)[0]
+    first_partition = np.argmax(per_part[:, hits] > 0, axis=0)
+    order = np.lexsort((hits, first_partition))
+    return [(decode(int(g)), int(totals[g])) for g in hits[order]]
+
+
 class DeviceEngine:
     """The port's device engine over one device, or with `devices` (two or
     more, repeats allowed) sharded over them with devices[0] the primary:
@@ -1007,18 +1020,21 @@ class DeviceEngine:
     # -- group-by (Aggregated with groupByFields) -------------------------
 
     _GROUP_BUCKETS = (64, 1024, 16384, 1 << 20)
-    # column lists whose codes stay on the devices: each holds 4 bytes per
-    # sequence slot on every shard, outside the pool's budget, and the
-    # lists come from the clients, so the cache drops the least recent
+    # column lists whose codes stay on the devices: each holds 1, 2 or 4
+    # bytes per sequence slot on every shard (kernels.code_dtype), outside
+    # the pool's budget, and the lists come from the clients, so the cache
+    # drops the least recent
     GROUP_CODES_CACHED = 8
 
     def group_codes_for(self, column_names: list[str]):
         """Per-sequence combined group codes for a column list, cached for
         the GROUP_CODES_CACHED lists used last: (codes per shard, n_groups,
         decode(group_id) -> per-column raw code tuple). The codes are built
-        on the host (int32 [P, W*32]; a padding sequence carries the code
-        n_groups) and split over the word shards like the words: shard d
-        holds the codes of its words' bits, [32 * PW/D] on its device. None
+        on the host ([P, W*32] in the narrowest type that holds them and the
+        padding code n_groups, kernels.code_dtype: uint8 up to 255 groups,
+        int16 up to 32,767, else int32) and split over the word shards like
+        the words: shard d holds the codes of its words' bits, [32 * PW/D]
+        on its device. None
         where a column kind cannot be coded densely or the key space exceeds
         the largest bucket, 2^20 groups (the reference's
         device_engine.py:1436-1508, whose host path then answers). The key
@@ -1074,8 +1090,10 @@ class DeviceEngine:
             n_groups *= size
         if n_groups > self._GROUP_BUCKETS[-1]:
             return None
+        dtype = {torch.uint8: np.uint8, torch.int16: np.int16,
+                 torch.int32: np.int32}[kernels.code_dtype(n_groups)]
         combined = np.full((self.n_partitions, self.n_words * 32), n_groups,
-                           dtype=np.int32)
+                           dtype=dtype)
         for pi, partition in enumerate(self.db.partitions):
             acc = np.zeros(partition.sequence_count, dtype=np.int64)
             for ci in range(len(column_names)):
@@ -1099,11 +1117,11 @@ class DeviceEngine:
 
     def group_counts(self, filter_expr, column_names: list[str]):
         """Aggregated with groupByFields on the device: the filter's words,
-        then per shard the group-count kernel over its words and codes
-        ([P, G] partials, added on the primary device), G the first bucket
-        that holds n_groups, plus one. Returns [(decoded group tuple,
-        count)] in the host path's row order, or None when the columns are
-        unsupported (group_codes_for)."""
+        then the group-count kernel over every shard's words and codes, one
+        launch per card ([P, G] counts, the cards' added on the primary
+        device), G the first bucket that holds n_groups, plus one. Returns
+        [(decoded group tuple, count)] in the host path's row order, or
+        None when the columns are unsupported (group_codes_for)."""
         prepared = self.group_codes_for(column_names)
         if prepared is None:
             return None
@@ -1111,20 +1129,10 @@ class DeviceEngine:
         bucket = next(b for b in self._GROUP_BUCKETS if b >= n_groups)
         words = self.evaluate_device(filter_expr)
         with self._on_stream():
-            partials = [kernels.group_counts(part, codes, offset, self.n_words,
-                                             self.n_partitions, bucket + 1)
-                        for part, codes, offset
-                        in zip(words, codes_on, self.shards.offsets)]
-            per_part = reduce_sum(partials, self.device).cpu().numpy()
-        per_part = per_part[:, :n_groups]  # [P, G]
-        totals = per_part.sum(axis=0, dtype=np.int64)
-        hits = np.nonzero(totals)[0]
-        # Row order identical to the host path: groups appear when first
-        # seen scanning partitions in order, sorted by code within each
-        # partition's novel set.
-        first_partition = np.argmax(per_part[:, hits] > 0, axis=0)
-        order = np.lexsort((hits, first_partition))
-        return [(decode(int(g)), int(totals[g])) for g in hits[order]]
+            per_part = kernels.group_counts_sharded(
+                words, codes_on, self.shards.offsets, self.n_words,
+                self.n_partitions, bucket + 1).cpu().numpy()
+        return group_rows(per_part, n_groups, decode)
 
     # -- counts -------------------------------------------------------------------
 

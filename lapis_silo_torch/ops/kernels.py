@@ -30,9 +30,10 @@ the forms the TPU package wrote as kernels of their own:
 - ``popcount_rows_and_filter`` (wrapper): K2 over every row of a row
   block, replacing ``:104`` ``popcount_rows_and_filter`` (no engine path
   calls it);
-- ``group_counts`` (``csrc/group_counts.cu``): the group-by reduction of a
-  filter over per-sequence group codes, counts per (partition, group),
-  replacing the XLA reduction ``_group_counts_jit``
+- ``group_counts`` and ``group_counts_sharded`` (``csrc/group_counts.cu``):
+  the group-by reduction of a filter over per-sequence group codes (uint8,
+  int16 or int32), counts per (partition, group), one launch per card over
+  all of its word shards, replacing the XLA reduction ``_group_counts_jit``
   (``lapis_silo_tpu/ops/reductions.py:23``), which is no Pallas kernel.
 
 At first use each source is compiled with its own ``nvcc`` (all started
@@ -143,8 +144,8 @@ _SIGNATURES = {
                            _P],
     "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
                                      _I64, _P, _I64, _P, _P],
-    "lapis_group_counts": [_P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P,
-                           _P],
+    "lapis_group_counts": [ctypes.POINTER(_I64), _I32, _I32, _I32, _I64,
+                           _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P],
 }
 
 
@@ -1011,41 +1012,208 @@ def densify_rows_into_pool_plain(pool, idx, words, starts, lens, slots,
 
 # -- K9: the group-by reduction ---------------------------------------------
 
-def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
-                 part_words: int, n_partitions: int,
-                 n_groups: int) -> torch.Tensor:
-    """counts[p, g] = the number of set bits of the window's words [n] (the
-    global words [w_off, w_off + n); partition p owns the global words
-    [p * part_words, (p + 1) * part_words)) whose code in codes [n * 32]
-    (one per bit), clipped to n_groups - 1, is g; negative codes count
-    nowhere. int32 [n_partitions, n_groups] on the inputs' device."""
+# the group codes' types, narrowest first (DeviceEngine stores a column
+# list's codes in the first that holds them and the padding code), and the
+# bins a code of each can reach: H = min(G, this)
+CODE_DTYPES = (torch.uint8, torch.int16, torch.int32)
+_CODE_BINS = {torch.uint8: 256, torch.int16: 32768, torch.int32: 1 << 62}
+# threads of a K9 CTA, one 16-byte quad of codes each; its [H] bins in
+# shared memory up to K9_SMEM_BINS; its output zeroed by the launch before
+# on the same stream while it holds up to K9_SPARE_BINS counts
+K9_THREADS = 256
+K9_SMEM_BINS = 49152
+K9_SPARE_BINS = 1 << 20
+K9_MAX_CTAS = 4096
+K9_MAX_SHARDS = 32  # shards of one card in one launch's shard table
+
+
+def code_dtype(n_groups: int) -> torch.dtype:
+    """The narrowest of CODE_DTYPES that holds the codes [0, n_groups], the
+    padding code n_groups included."""
+    for dtype in CODE_DTYPES:
+        if n_groups <= torch.iinfo(dtype).max:
+            return dtype
+    raise ValueError(f"{n_groups} groups do not fit int32 codes")
+
+
+def k9_bins(dtype: torch.dtype, n_groups: int) -> int:
+    """H: the bins codes of `dtype` reach when clipped to n_groups - 1."""
+    return min(n_groups, _CODE_BINS[dtype])
+
+
+def k9_block(n_words: int, n_bins: int, code_bytes: int) -> int:
+    """Words per K9 CTA for a card's `n_words`: a quad of codes per thread
+    (16 / code_bytes codes), more while the CTA's bins outnumber its bits
+    (so zeroing and flushing them stays below the bits' own work), and more
+    while the grid would pass K9_MAX_CTAS."""
+    blk = K9_THREADS * 16 // code_bytes // 32
+    while n_bins <= K9_SMEM_BINS and blk < 8192 and blk * 32 < n_bins:
+        blk *= 2
+    while -(-n_words // blk) > K9_MAX_CTAS:
+        blk *= 2
+    return blk
+
+
+@functools.lru_cache(maxsize=256)
+def k9_layout(widths: tuple, offsets: tuple, part_words: int,
+              blk: int) -> tuple:
+    """The numbers of K9's shard table for one card. Shard s holds the
+    global words [offsets[s], offsets[s] + widths[s]), partition p the
+    global words [p * part_words, (p + 1) * part_words); each CTA takes at
+    most `blk` words of one shard inside one partition, shard by shard,
+    partition by partition, in word order. Per shard (width, its words in
+    its first partition, its first CTA, its CTAs in its first partition,
+    its first partition), the CTAs of a whole partition, and the launch's
+    CTAs."""
+    if len(widths) > K9_MAX_SHARDS:
+        raise ValueError(f"K9 takes at most {K9_MAX_SHARDS} shards a card, "
+                         f"got {len(widths)}")
+    rows, n_ctas = [], 0
+    cf = -(-part_words // blk)
+    for n, off in zip(widths, offsets):
+        p_lo = off // part_words
+        len0 = min((p_lo + 1) * part_words - off, n)
+        c0 = -(-len0 // blk)
+        n_full, tail = divmod(n - len0, part_words)
+        rows.append((n, len0, n_ctas, c0, p_lo))
+        n_ctas += c0 + n_full * cf + -(-tail // blk)
+    return tuple(rows), cf, n_ctas
+
+
+def k9_table(words: list, codes: list, rows: tuple) -> ctypes.Array:
+    """K9's shard table for one card, passed to the kernel by value: int64
+    [n_shards, 7], per shard the address of its words and of its codes and
+    its k9_layout row."""
+    table = (ctypes.c_longlong * (7 * len(rows)))()
+    for i, (part, shard_codes, row) in enumerate(zip(words, codes, rows)):
+        table[7 * i:7 * i + 7] = (part.data_ptr(), shard_codes.data_ptr(),
+                                  *row)
+    return table
+
+
+def _check_group_shard(words: torch.Tensor, codes: torch.Tensor, w_off: int,
+                       part_words: int, n_partitions: int,
+                       n_groups: int) -> None:
+    """One shard's K9 inputs: words int32 [n] and codes [32 n] of a code
+    type (16-byte aligned on a card) on one device, the window inside the
+    n_partitions x part_words words."""
     device = words.device
     _check("words", words, device, (None,))
-    _check("codes", codes, device, (32 * words.shape[0],))
+    if codes.dtype not in CODE_DTYPES:
+        raise ValueError(f"codes: dtype {codes.dtype}, want one of "
+                         f"{CODE_DTYPES}")
+    if codes.device != device or not codes.is_contiguous():
+        raise ValueError(f"codes: want contiguous on {device}")
+    if tuple(codes.shape) != (32 * words.shape[0],):
+        raise ValueError(f"codes: shape {tuple(codes.shape)}, want "
+                         f"({32 * words.shape[0]},)")
+    if device.type == "cuda" and codes.data_ptr() % 16:
+        raise ValueError("codes: K9 loads them in 16-byte quads; want a "
+                         "16-byte aligned start")
     if part_words < 1 or n_groups < 1 or n_partitions < 1:
         raise ValueError(f"part_words {part_words}, n_groups {n_groups} and "
                          f"n_partitions {n_partitions} must be positive")
     if w_off < 0 or w_off + words.shape[0] > part_words * n_partitions:
         raise ValueError(f"window [{w_off}, {w_off + words.shape[0]}) outside "
                          f"the {n_partitions} x {part_words} words")
+
+
+def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
+                 part_words: int, n_partitions: int,
+                 n_groups: int) -> torch.Tensor:
+    """counts[p, g] = the number of set bits of the window's words [n] (the
+    global words [w_off, w_off + n); partition p owns the global words
+    [p * part_words, (p + 1) * part_words)) whose code in codes [n * 32]
+    (one per bit, uint8, int16 or int32), clipped to n_groups - 1, is g;
+    negative codes count nowhere. int32 [n_partitions, n_groups] on the
+    inputs' device."""
+    _check_group_shard(words, codes, w_off, part_words, n_partitions,
+                       n_groups)
+    device = words.device
     if device.type == "cpu":
         return group_counts_plain(words, codes, w_off, part_words,
                                   n_partitions, n_groups)
     if device.type != "cuda":
         raise ValueError(f"group_counts: no kernel for device {device}")
+    return _group_counts_cards([words], [codes], [w_off], [device],
+                               part_words, n_partitions, n_groups)
+
+
+def group_counts_sharded(words: list, codes: list, offsets: list,
+                         part_words: int, n_partitions: int,
+                         n_groups: int) -> torch.Tensor:
+    """group_counts over every word shard (shard d's words [n_d] and codes
+    [32 n_d], of one code type, on its device, its window at the global word
+    offsets[d]), summed: int32 [n_partitions, n_groups] on the first shard's
+    device. On the cards K9 runs once per distinct card over all of its
+    shards, on that card's current stream, and sums them there; the cards'
+    sums are then added on the first shard's device."""
+    devices = _shard_devices(words, codes, offsets)
+    if len({c.dtype for c in codes}) > 1:
+        raise ValueError("shards mix code types")
+    for part, shard_codes, offset in zip(words, codes, offsets):
+        _check_group_shard(part, shard_codes, offset, part_words,
+                           n_partitions, n_groups)
+    if devices[0].type == "cpu":
+        return group_counts_sharded_plain(words, codes, offsets, part_words,
+                                          n_partitions, n_groups)
+    if devices[0].type != "cuda":
+        raise ValueError(f"group_counts_sharded: no kernel for device "
+                         f"{devices[0]}")
+    return _group_counts_cards(words, codes, offsets, devices, part_words,
+                               n_partitions, n_groups)
+
+
+# per (card, stream, shape): the output the last K9 launch on that stream
+# zeroed for the next
+_k9_spares: dict = {}
+_k9_spares_lock = threading.Lock()
+
+
+def _group_counts_cards(words, codes, offsets, devices, part_words,
+                        n_partitions, n_groups) -> torch.Tensor:
+    """K9 once per distinct card over all of its shards (the card's shard
+    table goes with the launch, no copy precedes it), each card's counts
+    summed on the card; the cards' counts then added on devices[0]."""
     lib = load_library()
-    out = torch.zeros((n_partitions, n_groups), dtype=torch.int32,
-                      device=device)
-    p_lo = w_off // part_words
-    p_hi = min(-(-(w_off + words.shape[0]) // part_words), n_partitions)
-    with torch.cuda.device(device):
-        err = lib.lapis_group_counts(
-            words.data_ptr(), codes.data_ptr(), words.shape[0], w_off,
-            part_words, p_lo, p_hi - p_lo, n_groups, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "group_counts")
-    GROUP_COUNTS.add()
-    return out
+    code_bytes = codes[0].element_size()
+    n_bins = k9_bins(codes[0].dtype, n_groups)
+    shape = (n_partitions, n_groups)
+    members: dict = {}
+    for d, device in enumerate(devices):
+        members.setdefault(device, []).append(d)
+    partials = []
+    for card, ds in members.items():
+        widths = tuple(words[d].shape[0] for d in ds)
+        blk = k9_block(sum(widths), n_bins, code_bytes)
+        rows, cf, n_ctas = k9_layout(widths, tuple(offsets[d] for d in ds),
+                                     part_words, blk)
+        table = k9_table([words[d] for d in ds], [codes[d] for d in ds], rows)
+        stream = torch.cuda.current_stream(card)
+        with torch.cuda.device(card), _k9_spares_lock:
+            # the lock keeps the launches in the order they take the spares
+            key = (card, stream.cuda_stream, shape)
+            spare = None
+            if n_partitions * n_groups > K9_SPARE_BINS or not n_ctas:
+                counts = torch.zeros(shape, dtype=torch.int32, device=card)
+            else:
+                counts = _k9_spares.pop(key, None)
+                if counts is None:
+                    counts = torch.zeros(shape, dtype=torch.int32, device=card)
+                spare = torch.empty(shape, dtype=torch.int32, device=card)
+            partials.append(counts)
+            if not n_ctas:
+                continue
+            err = lib.lapis_group_counts(
+                table, len(ds), cf, n_ctas, part_words, blk, K9_THREADS,
+                code_bytes, n_groups, n_bins, n_partitions,
+                counts.data_ptr(), None if spare is None else spare.data_ptr(),
+                stream.cuda_stream)
+            _raise_on(err, "group_counts")
+            if spare is not None:
+                _k9_spares[key] = spare
+        GROUP_COUNTS.add()
+    return reduce_sum(partials, devices[0])
 
 
 def group_counts_plain(words: torch.Tensor, codes: torch.Tensor, w_off: int,
@@ -1055,3 +1223,15 @@ def group_counts_plain(words: torch.Tensor, codes: torch.Tensor, w_off: int,
     GROUP_COUNTS.add(plain=True)
     return reductions.group_counts(words, codes, w_off, part_words,
                                    n_partitions, n_groups)
+
+
+def group_counts_sharded_plain(words: list, codes: list, offsets: list,
+                               part_words: int, n_partitions: int,
+                               n_groups: int) -> torch.Tensor:
+    """The plain PyTorch version of group_counts_sharded: group_counts_plain
+    per shard and the same sum."""
+    devices = _shard_devices(words, codes, offsets)
+    return reduce_sum([group_counts_plain(part, shard_codes, offset,
+                                          part_words, n_partitions, n_groups)
+                       for part, shard_codes, offset
+                       in zip(words, codes, offsets)], devices[0])

@@ -62,8 +62,9 @@ def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
     """counts[p, g] = the number of set bits b of words[w] (the window of
     global words [w_off, w_off + n), partition p owning the global words
     [p * part_words, (p + 1) * part_words)) with min(codes[w*32 + b],
-    n_groups - 1) == g, for words [n] and codes [n * 32] int32; negative
-    codes count nowhere. The per-bit segment sum of _group_counts_jit
+    n_groups - 1) == g, for words [n] and codes [n * 32] of an integer
+    type (the engine's uint8, int16 or int32); negative codes count
+    nowhere. The per-bit segment sum of _group_counts_jit
     (lapis_silo_tpu/ops/reductions.py:23-40) over a window; every shift is
     masked (the words are u32 held as int32). int32 [P, n_groups]."""
     device = words.device

@@ -12,8 +12,8 @@ are those of ``tests/test_device_groupby.py`` (which needs the reference's
 test data) on the synthetic schema, the float canonicalisation case, and
 the "use the host path" cases (a column kind with no dense code, more than
 2^20 groups). Every value is an integer: the tolerance is equality. K9 is
-held to its plain version on the card at the bucket edges (marked
-`cuda`)."""
+held to its plain version on the card for every code type at the bucket
+edges, on one shard and on several of one card (marked `cuda`)."""
 
 import json
 
@@ -243,45 +243,85 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_group_counts_kernel_matches_plain_on_card(cuda_device):
-    """K9 against its plain version at every bucket edge (G 65, 1,025,
-    16,385 in shared memory, 2^20 + 1 in device memory), with padding and
-    negative codes, all bits set and all clear, runs of one code (merged
-    lanes), a word count that is no multiple of a CTA's block, and windows
-    of 3 shards that straddle partitions."""
+    """K9 against its plain version for every code type (uint8, int16,
+    int32) at every bucket edge (G 65, 1,025, 16,385 and 2^20 + 1: the
+    ticket, flush and device-memory forms), with padding and negative
+    codes, all bits set and all clear, runs of one code (merged lanes), a
+    word count that is no multiple of a CTA's block, on one shard, on 3
+    shards that straddle partitions (one launch each), on 3 of ragged widths
+    and on 4 of one card through group_counts_sharded (one launch)."""
     rng = np.random.default_rng(9)
-    for n_groups in (65, 1025, 16385, (1 << 20) + 1):
-        for n_partitions, part_words in ((1, 1), (3, 1111), (4, 8192)):
-            pw = n_partitions * part_words
-            words = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
-            words[: pw // 7] = 0xFFFFFFFF
-            words[pw // 7: pw // 5] = 0
-            codes = rng.integers(-1, n_groups + 1, size=pw * 32).astype(np.int32)
-            codes[: 32 * (pw // 9)] = rng.integers(0, 3)  # one group's run
-            for n_shards in (1, 3):
-                local = pw // n_shards
-                for d in range(n_shards):
-                    args = (_t(words[d * local:(d + 1) * local]).to(cuda_device),
-                            torch.from_numpy(codes[32 * d * local:
-                                                   32 * (d + 1) * local]
-                                             ).to(cuda_device),
-                            d * local, part_words, n_partitions, n_groups)
-                    got = kernels.group_counts(*args)
-                    want = kernels.group_counts_plain(*args)
-                    assert torch.equal(got, want), (n_groups, n_partitions, d)
+    for dtype in kernels.CODE_DTYPES:
+        info = torch.iinfo(dtype)
+        for n_groups in (65, 1025, 16385, (1 << 20) + 1):
+            for n_partitions, part_words in ((1, 1), (3, 1111), (4, 8192)):
+                pw = n_partitions * part_words
+                words = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32)
+                words[: pw // 7] = 0xFFFFFFFF
+                words[pw // 7: pw // 5] = 0
+                codes = rng.integers(max(info.min, -1),
+                                     min(info.max, n_groups) + 1,
+                                     size=pw * 32)
+                codes[: 32 * (pw // 9)] = rng.integers(0, 3)  # one group's run
+                codes = torch.from_numpy(codes).to(dtype)
+                for n_shards in (1, 3):
+                    local = pw // n_shards
+                    for d in range(n_shards):
+                        args = (_t(words[d * local:(d + 1) * local]).to(cuda_device),
+                                codes[32 * d * local:32 * (d + 1) * local
+                                      ].to(cuda_device),
+                                d * local, part_words, n_partitions, n_groups)
+                        got = kernels.group_counts(*args)
+                        want = kernels.group_counts_plain(*args)
+                        assert torch.equal(got, want), (dtype, n_groups,
+                                                        n_partitions, d)
+                cuts = [0, pw // 5, pw // 5 + pw // 3 + 1, pw]
+                for bounds in (cuts, np.linspace(0, pw, 5).astype(int)):
+                    if np.diff(bounds).min() < 1:
+                        continue
+                    shards = ([_t(words[a:b]).to(cuda_device)
+                               for a, b in zip(bounds, bounds[1:])],
+                              [codes[32 * a:32 * b].to(cuda_device)
+                               for a, b in zip(bounds, bounds[1:])],
+                              [int(a) for a in bounds[:-1]])
+                    args = (*shards, part_words, n_partitions, n_groups)
+                    before = kernels.GROUP_COUNTS.launches
+                    got = kernels.group_counts_sharded(*args)
+                    assert kernels.GROUP_COUNTS.launches == before + 1
+                    want = kernels.group_counts_sharded_plain(*args)
+                    assert torch.equal(got, want), (dtype, n_groups,
+                                                    len(bounds) - 1)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_group_counts_kernel_checks_on_card(cuda_device):
+    """The card route refuses codes of another type and codes that do not
+    start on a 16-byte boundary (K9 loads them in quads)."""
+    words = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
+    codes = torch.zeros(4 * 32 + 16, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernels.group_counts(words, codes[1:129], 0, 4, 1, 65)
+    with pytest.raises(ValueError):
+        kernels.group_counts(words, codes[:128].to(torch.int64), 0, 4, 1, 65)
+    assert kernels.group_counts(words, codes[16:144], 0, 4, 1, 65)[0, 0] == 128
 
 
 @pytest.mark.cuda
 def test_group_counts_on_card_match_cpu(cuda_device, port_db):
     """The engine on the card (and on 4 shards of it) answers every case as
-    the CPU engine does, through K9."""
+    the CPU engine does, through K9: one launch per group-by query, on one
+    shard and on 4 shards of one card alike, and no plain version."""
     cpu = DeviceEngine(port_db, CPU)
     for devices in (None, [cuda_device] * 4):
         card = DeviceEngine(port_db, cuda_device, devices=devices)
         before = kernels.GROUP_COUNTS.launches
+        plain = kernels.GROUP_COUNTS.plain_launches
         for filter_json, columns in CASES:
             body = json.dumps({"action": {"type": "Aggregated"},
                                "filterExpression": filter_json})
-            assert card.group_counts(Query(body).filter, columns) == (
-                cpu.group_counts(Query(body).filter, columns))
-        assert kernels.GROUP_COUNTS.launches > before
+            got = card.group_counts(Query(body).filter, columns)
+            assert kernels.GROUP_COUNTS.plain_launches == plain
+            assert got == cpu.group_counts(Query(body).filter, columns)
+            plain = kernels.GROUP_COUNTS.plain_launches
+        assert kernels.GROUP_COUNTS.launches == before + len(CASES)
