@@ -21,12 +21,14 @@ Phases, one line each or more (the last line is the JSON verdict):
      the group-count kernel K9 for every code type (uint8, int16, int32)
      at every bucket edge with padding and negative codes, all bits set and
      clear, on one shard, on shard windows, on 3 shards of ragged widths
-     round-robin on the cards and on 4 of one card) and at the
+     round-robin on the cards and on 4 of one card; K10 and K11 on shards
+     just under and past whole tiles, views that start inside a 16-byte
+     quad, empty shards, at every fill around the cap) and at the
      main paths' shapes (the 512-query batch in its per-query segments, and
      as one segment), with both times there (for the VM also its wrapper's
      wall time per call, host time included) and each kernel's bound, the
      larger of its bytes over the HBM rate and its operations over the peak
-     rate (K9 and the compact extraction at phase 5's shapes in its set-up,
+     rate (K9, K10 and K11 at phase 5's shapes in its set-up,
      the two-tier shapes in phase 7's, the sharded ones in phase 8a's; K9
      there by date over every sequence, the 6% Details filter and one
      mutation, beside the split of one group-by query: evaluate_device, K9,
@@ -41,17 +43,24 @@ Phases, one line each or more (the last line is the JSON verdict):
      count_programs launch, (c) two selective Mutations queries; all equal
      to the host oracle;
   5. at 1,048,576 sequences x 29,903 positions in 4 partitions (a dense bank
-     of about 11.8 GB on the card): set-up compares the compact extraction
-     (evaluate_compact) with evaluate() below and above its cap and times
-     it, then times both as whole calls on synthetic words from 131,072 to
-     4,194,304 flat words (COMPACT_MIN_WORDS comes from this), and K9 with
+     of about 11.8 GB on the card): set-up holds K10 (the compact
+     extraction) and K11 (the word popcount) to their plain versions at
+     the engine's shapes, at fills 0, 1, cap - 1, cap, cap + 1 and 5 cap,
+     one launch per card, compares evaluate_compact with evaluate() below
+     and above its cap and times K10 and K11 against the torch-op chains
+     they replaced, then times the extraction and the bitset copy as whole
+     calls on synthetic words from 131,072 to 4,194,304 flat words, the
+     host's rebuild apart (COMPACT_MIN_WORDS comes from this), and K9 with
      its plain version for every group-by column list (each list's codes
      held as uint8); then the 64 counts, 8 group-by queries (by date,
      country, date and country, age; K9 launched once per query per card,
      here and in 7, 8a and 8b), two Details through evaluate_compact
-     (COMPACT_MIN_WORDS set to 0
+     (K10 launched once per query per card, here and in 7 and 8a;
+     COMPACT_MIN_WORDS set to 0
      on the engine: the corpus has fewer flat words; one filter under the
-     cap, one over) and two Mutations queries, all equal to the host oracle;
+     cap, one over) and two Mutations queries (K11 launched once per query
+     per card for the filter's total, in every phase), all equal to the
+     host oracle;
   8a. phase 5's corpus and oracle answers on the word-sharded engine: the
      single-device engine freed, install(db, ..., devices=[4 shards]) places
      the shards round-robin on the visible cards (all four on one card when
@@ -60,10 +69,11 @@ Phases, one line each or more (the last line is the JSON verdict):
      queries and one Mutations query, all equal to the host oracle;
      vm_run_sharded (K6) and mutation_counts_sharded against their plain
      versions at these shapes, with both times, K6's bound and beside it K1
-     over all 32,768 words in one launch; the compaction per shard and K9
-     over the 4 shards in one launch per card;
+     over all 32,768 words in one launch; K10, K11 and K9 over the 4
+     shards in one launch per card;
   8c. on the same shards, lapis_silo_torch.parallel.mesh.ShardedQueryStep:
-     one program's words, count and 64 segment counts (the main segment's
+     one program's words, count (K11, one launch per card) and 64 segment
+     counts (the main segment's
      start, and a start past the end, clamped) equal to the plain versions
      on the card and a popcount on the host, its time per call on the card
      and wall; then parallel.dryrun.dryrun_multichip on 4 shards of the
@@ -146,8 +156,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      11 (phase 8d's and 11's counts come from their processes; but
      popcount_rows_and_filter, which no engine path calls) and no plain
      version ran there, the VM (K1, or K6 where a card holds several
-     shards), K2 and K9 launched in phase 10 and in each
-     process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
+     shards), K2, K9 and K11 launched in phases 9 and 10 (K10 too) and in
+     each process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
      the device path stayed on.
 
 Each main-path phase runs with the launch counts set to 0 just before it and
@@ -202,8 +212,11 @@ REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
                 ("densify_rows_into_pool", 1252), ("vm_run_sharded", 741),
                 ("mutation_counts_sharded", 777),
                 ("popcount_rows_and_filter", 104))}
-# K9's reference is an XLA reduction, no Pallas kernel
+# K9's, K10's and K11's references are XLA code, no Pallas kernel: the
+# group-by reduction, the interpreter's compact output, the word popcount
 REPLACES["group_counts"] = "lapis_silo_tpu/ops/reductions.py:23"
+REPLACES["compact_nonzero"] = "lapis_silo_tpu/ops/vm.py:505"
+REPLACES["popcount_words"] = "lapis_silo_tpu/ops/reductions.py:18"
 # the dashboard group-by queries of phases 5, 7, 8 and 9
 GROUP_BYS = (["date"], ["country"], ["date", "country"], ["age"])
 
@@ -450,59 +463,108 @@ def run_details(db, engine, queries: list[str], want: list[dict],
     than COMPACT_MIN_WORDS, so the engine instance's limit is set to 0 (as
     tests/test_device_engine.py does for the JAX engine) and the phase says
     so; one filter below the cap, one above it."""
+    from lapis_silo_torch.ops import kernels
     from lapis_silo_torch.query.engine import Query
 
     engine.COMPACT_MIN_WORDS = 0
+    n_cards = len(engine.shards.distinct)
     for query, expected in zip(queries, want):
         flt = Query(query).filter
         nonzero = sum(int(np.count_nonzero(w)) for w in engine.evaluate(flt))
+        launches = kernels.COMPACT_NONZERO.launches
         t0 = time.perf_counter()
         got = db.execute_query(query)
         ms = (time.perf_counter() - t0) * 1e3
         assert got == expected, query
+        assert kernels.COMPACT_NONZERO.launches - launches == n_cards, phase
         log(phase, f"Details through evaluate_compact (COMPACT_MIN_WORDS set "
             f"to 0 on this engine: {engine.n_flat_words} flat words) equals "
             f"the host oracle; {nonzero} non-zero words, "
             f"{'under' if nonzero <= engine.COMPACT_CAP_WORDS else 'over'} "
-            f"the cap of {engine.COMPACT_CAP_WORDS}; {ms:.2f} ms")
+            f"the cap of {engine.COMPACT_CAP_WORDS}; K10 launched once per "
+            f"card ({n_cards}); {ms:.2f} ms")
 
 
-def compact_kernels(engine, torch, db, label: str) -> dict:
-    """On the engine's shapes: evaluate_compact against evaluate() on the
-    card below and above the cap; the compaction's time on the card (torch
-    ops after the VM launch, per shard) and per call. Returns the
-    compaction's numbers."""
-    from lapis_silo_torch.ops import reductions
+def compact_kernels(engine, kernels, torch, db, err: dict, timings: dict,
+                    label: str) -> dict:
+    """On the engine's shapes: K10 (compact_nonzero_sharded) and K11
+    (popcount_words_sharded), each one launch per card over the shards,
+    against their plain versions on the words of the two Details filters
+    (under and over the cap) and on synthetic words of the engine's shard
+    widths at its shards' offsets, with 0, 1, cap - 1, cap, cap + 1 and
+    5 cap non-zero words a shard (every word where the shard is narrower);
+    evaluate_compact against evaluate() below and above the cap; on the
+    filter under the cap, K10's and K11's times on the card beside their
+    plain versions' (the torch-op chains the engine ran before) and their
+    bounds, and evaluate_compact's wall per call against evaluate()'s.
+    Returns the readings; the first engine's go into `timings`."""
     from lapis_silo_torch.query.engine import Query
 
     engine.COMPACT_MIN_WORDS = 0
     cap = engine.COMPACT_CAP_WORDS
+    offsets = engine.shards.offsets
+    local = engine.shards.local_words
+    n_cards = len(engine.shards.distinct)
     below, above = (Query(q).filter for q in details_queries(db))
     for flt in (below, above):
         for got, want in zip(engine.evaluate_compact(flt),
                              engine.evaluate(flt)):
             assert np.array_equal(got, want), label
-    words = engine.evaluate_device(below)
-    offsets = engine.shards.offsets
-    compact_ms = cuda_ms(lambda: [reductions.compact_nonzero(w, cap, o)
-                                  for w, o in zip(words, offsets)], reps=20)
+    rng = np.random.default_rng(10)
+    cases = {"under the cap": engine.evaluate_device(below),
+             "over the cap": engine.evaluate_device(above)}
+    for fill in (0, 1, cap - 1, cap, cap + 1, 5 * cap):
+        parts = []
+        for device in engine.shards.devices:
+            host = np.zeros(local, dtype=np.uint32)
+            hot = rng.choice(local, size=min(fill, local), replace=False)
+            host[hot] = rng.integers(1, 1 << 32, size=hot.size,
+                                     dtype=np.uint64).astype(np.uint32)
+            parts.append(torch.from_numpy(host.view(np.int32)).to(device))
+        cases[f"{fill} a shard"] = parts
+    for words in cases.values():
+        k10 = kernels.COMPACT_NONZERO.launches
+        k11 = kernels.POPCOUNT_WORDS.launches
+        got = kernels.compact_nonzero_sharded(words, offsets, cap)
+        total = kernels.popcount_words_sharded(words)
+        assert kernels.COMPACT_NONZERO.launches - k10 == n_cards, label
+        assert kernels.POPCOUNT_WORDS.launches - k11 == n_cards, label
+        want = kernels.compact_nonzero_sharded_plain(words, offsets, cap)
+        err["compact_nonzero"] = max(err["compact_nonzero"], *(
+            max_abs_err(g, w) for g, w in zip(got, want)))
+        err["popcount_words"] = max(err["popcount_words"], abs(
+            int(total) - int(kernels.popcount_words_sharded_plain(words))))
+    words = cases["under the cap"]
+    pw, n_shards = engine.n_flat_words, len(engine.shards)
+    k10 = (cuda_ms(lambda: kernels.compact_nonzero_sharded(words, offsets,
+                                                           cap), reps=50),
+           cuda_ms(lambda: kernels.compact_nonzero_sharded_plain(
+               words, offsets, cap), reps=20),
+           4 * pw + 4 * (1 + 2 * cap) * n_shards, 2 * pw, n_cards)
+    k11 = (cuda_ms(lambda: kernels.popcount_words_sharded(words), reps=50),
+           cuda_ms(lambda: kernels.popcount_words_sharded_plain(words),
+                   reps=20),
+           4 * pw + 8 * n_cards, 2 * pw, n_cards)
+    timings.setdefault("compact_nonzero", k10)
+    timings.setdefault("popcount_words", k11)
     compact_wall = wall_ms(lambda: engine.evaluate_compact(below), reps=10)
     full_wall = wall_ms(lambda: engine.evaluate(below), reps=10)
     overflow_wall = wall_ms(lambda: engine.evaluate_compact(above), reps=5)
-    sweep = compact_sweep(engine, torch) if label == "5" else None
-    compact_bound_ms = compact_bound(engine.n_flat_words, cap,
-                                     len(engine.shards))[0]
-    log(f"{label} compact", f"evaluate_compact equals evaluate() below and "
-        f"above the cap ({cap}) on {len(engine.shards)} shard(s) of "
-        f"{engine.shards.local_words} words; compaction {compact_ms:.4f} ms "
-        f"on the card for {engine.n_flat_words} words (bound "
-        f"{compact_bound_ms:.5f} ms, bytes); per call "
-        f"{compact_wall:.4f} ms against "
-        f"{full_wall:.4f} ms for evaluate() (overflow {overflow_wall:.4f} ms)")
-    return {"ms": compact_ms, "bound_ms": compact_bound_ms,
-            "wall": compact_wall,
-            "evaluate_wall": full_wall, "overflow_wall": overflow_wall,
-            "words": engine.n_flat_words, "sweep": sweep}
+    sweep = compact_sweep(engine, kernels, torch) if label == "5" else None
+    log(f"{label} compact", f"K10 and K11 bit-exact against their plain "
+        f"versions ({', '.join(cases)}), one launch per card ({n_cards}); "
+        f"evaluate_compact equals evaluate() below and above the cap ({cap}) "
+        f"on {n_shards} shard(s) of {local} words; under the cap, on the "
+        f"card: K10 {k10[0]:.4f} ms (plain {k10[1]:.4f} ms, bound "
+        f"{bound(*k10[2:])[0]:.5f} ms), K11 {k11[0]:.4f} ms (plain "
+        f"{k11[1]:.4f} ms, bound {bound(*k11[2:])[0]:.5f} ms); per call "
+        f"{compact_wall:.4f} ms against {full_wall:.4f} ms for evaluate() "
+        f"(overflow {overflow_wall:.4f} ms)")
+    return {"k10_ms": k10[0], "k10_plain_ms": k10[1],
+            "k10_bound_ms": bound(*k10[2:])[0], "k11_ms": k11[0],
+            "k11_plain_ms": k11[1], "k11_bound_ms": bound(*k11[2:])[0],
+            "wall": compact_wall, "evaluate_wall": full_wall,
+            "overflow_wall": overflow_wall, "words": pw, "sweep": sweep}
 
 
 def group_work(engine, n_set: int, n_bins: int, code_bytes: int) -> tuple:
@@ -630,22 +692,28 @@ def compact_bound(n_words: int, cap: int, n_shards: int = 1) -> tuple:
     return bound(4 * n_words + 4 * (1 + 2 * cap) * n_shards, 2 * n_words)
 
 
-# flat word counts of the compaction sweep: the engine's COMPACT_MIN_WORDS,
-# the 10,000,000 x 32-partition corpus' flat axis, and two larger corpora
+# flat word counts of the compaction sweep: the JAX engine's
+# COMPACT_MIN_WORDS, the 10,000,000 x 32-partition corpus' flat axis (the
+# port's COMPACT_MIN_WORDS), and two larger corpora
 SWEEP_WORDS = (131072, 312512, 1048576, 4194304)
 
 
-def compact_sweep(engine, torch) -> dict:
-    """evaluate()'s bitset copy against evaluate_compact's extraction as
-    whole calls (wall time per call, the host's rebuild included) on
-    synthetic flat words on the card at SWEEP_WORDS, 400 non-zero words
-    (a selective filter) and COMPACT_CAP_WORDS of them (the most the
-    extraction takes); the VM launch before them is the same for both and
-    left out. Each extraction is checked against the copy. Returns the
-    times and the swept word counts at which the extraction is faster at
-    both fills."""
+def compact_sweep(engine, kernels, torch) -> dict:
+    """evaluate()'s bitset copy against evaluate_compact's extraction (K10,
+    one copy of the blocks into pinned memory, the host's rebuild) as whole
+    calls (wall time per call, the host's rebuild included) on synthetic
+    flat words on the card at SWEEP_WORDS, 400 non-zero words (a selective
+    filter) and COMPACT_CAP_WORDS of them (the most the extraction takes);
+    the VM launch before them is the same for both and left out. Each
+    extraction is checked against the copy. Beside them: K10's card time
+    against the torch-op chain it replaced (reductions.compact_nonzero) and
+    its bound, K11's against the popcount chain and the words' bytes over
+    the HBM rate, and the host's rebuild alone (np.zeros, the scatter and
+    the split into partitions). Returns the times and the swept word counts
+    at which the extraction is faster at both fills."""
     from lapis_silo_torch.ops import reductions
-    from lapis_silo_torch.ops.device_engine import compact_to_host
+    from lapis_silo_torch.ops.device_engine import (
+        compact_to_host, rebuild_from_blocks)
     from lapis_silo_torch.ops.words import to_host
     from lapis_silo_torch.parallel.shards import gather_words
 
@@ -660,21 +728,35 @@ def compact_sweep(engine, torch) -> dict:
             words = torch.from_numpy(host.view(np.int32)).to(device)
             copy = lambda: to_host(gather_words([words], "cpu"))  # noqa: E731
             extract = lambda: compact_to_host(  # noqa: E731
-                [words], [0], cap, device, n)
+                [words], [0], cap, n)
             assert np.array_equal(extract(), host) and np.array_equal(
                 copy(), host)
             # copy, extract, extract, copy, twice: the median of each four
             times = {copy: [], extract: []}
             for fn in (copy, extract, extract, copy) * 2:
                 times[fn].append(wall_ms(fn, reps=20, warmup=3))
+            packed = kernels.compact_nonzero(words, cap).cpu().numpy()[None]
+            t0 = time.perf_counter()
+            for _ in range(20):
+                rebuilt = rebuild_from_blocks(packed, cap, n)
+                [part[:-1] for part in rebuilt.reshape(4, -1)]
+            rebuild_ms = (time.perf_counter() - t0) * 1e3 / 20
             rows.append({
                 "words": n, "nonzero": n_hot,
                 "evaluate_ms": statistics.median(times[copy]),
                 "compact_ms": statistics.median(times[extract]),
-                "compact_card_ms": cuda_ms(
+                "rebuild_ms": rebuild_ms,
+                "k10_card_ms": cuda_ms(
+                    lambda: kernels.compact_nonzero(words, cap), reps=20),
+                "chain_card_ms": cuda_ms(
                     lambda: reductions.compact_nonzero(words, cap, 0),
                     reps=20),
-                "compact_bound_ms": compact_bound(n, cap)[0]})
+                "k10_bound_ms": compact_bound(n, cap)[0],
+                "k11_card_ms": cuda_ms(
+                    lambda: kernels.popcount_words(words), reps=20),
+                "popcount_chain_card_ms": cuda_ms(
+                    lambda: reductions.popcount_words(words), reps=20),
+                "k11_bound_ms": 4 * n / HBM_BYTES_PER_S * 1e3})
             del words
     wins = [n for n in SWEEP_WORDS
             if all(r["compact_ms"] < r["evaluate_ms"] for r in rows
@@ -683,8 +765,12 @@ def compact_sweep(engine, torch) -> dict:
         "readings), bitset copy (evaluate) against extraction "
         "(evaluate_compact), per flat words/non-zero words: "
         + "; ".join(f"{r['words']}/{r['nonzero']}: {r['evaluate_ms']:.4f} vs "
-                    f"{r['compact_ms']:.4f} (card {r['compact_card_ms']:.4f}, "
-                    f"bound {r['compact_bound_ms']:.5f})"
+                    f"{r['compact_ms']:.4f} (host rebuild "
+                    f"{r['rebuild_ms']:.4f}; K10 {r['k10_card_ms']:.4f} on "
+                    f"the card, chain {r['chain_card_ms']:.4f}, bound "
+                    f"{r['k10_bound_ms']:.5f}; K11 {r['k11_card_ms']:.4f}, "
+                    f"chain {r['popcount_chain_card_ms']:.4f}, bound "
+                    f"{r['k11_bound_ms']:.5f})"
                     for r in rows)
         + f"; extraction faster at both fills at {wins} words "
         f"(COMPACT_MIN_WORDS {type(engine).COMPACT_MIN_WORDS})")
@@ -711,13 +797,21 @@ def run_counts(db, queries: list[str], want: list[dict], phase: str) -> None:
 
 
 def run_mutations(db, queries: list[str], want: list[dict], phase: str) -> None:
+    """Each Mutations query against the oracle's answer, its filter total
+    counted by K11 once per card of the engine."""
+    from lapis_silo_torch.ops import kernels
+
+    n_cards = len(db.device_engine.shards.distinct)
     for query, expected in zip(queries, want):
+        launches = kernels.POPCOUNT_WORDS.launches
         t0 = time.perf_counter()
         got = db.execute_query(query)
         ms = (time.perf_counter() - t0) * 1e3
         assert got == expected, query
+        assert kernels.POPCOUNT_WORDS.launches - launches == n_cards, phase
         log(phase, f"Mutations ({len(got['queryResult'])} rows) equals the "
-            f"host oracle; {ms:.2f} ms")
+            f"host oracle; K11 launched once per card ({n_cards}); "
+            f"{ms:.2f} ms")
 
 
 def random_stream(rng, n_leaves: int, n_parts: int, part_words: int,
@@ -911,6 +1005,43 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                     err["group_counts"] = max(err["group_counts"], max_abs_err(
                         kernels.group_counts_sharded(*args),
                         kernels.group_counts_sharded_plain(*args)))
+    # K10 and K11 at tile edges: shards just under and past whole tiles of
+    # 4,096 words, views starting 0-3 words into a 16-byte quad, empty
+    # shards, every fill around the cap, on one card and round-robin on the
+    # visible cards (a launch per card)
+    tile = 4 * kernels.COMPACT_TILE_QUADS
+    for widths, head, cap in (([tile - 1, 0, 2 * tile + 3, 5], 3, 2),
+                              ([tile + 1, tile - 2, 1], 1, 3),
+                              ([3 * tile - 1], 2, 40),
+                              ([7, tile, 0, tile + 7], 0, 16384)):
+        for fill in (0, 1, cap - 1, cap, cap + 1, 5 * cap):
+            for cards in ([device] * len(widths),
+                          [torch.device(DEVICE, d % n_cards)
+                           for d in range(len(widths))]):
+                parts = []
+                for n, card in zip(widths, cards):
+                    host = np.zeros(n + head, dtype=np.uint32)
+                    hot = head + rng.choice(n, size=min(fill, n),
+                                            replace=False)
+                    host[hot] = rng.integers(1, 1 << 32, size=hot.size,
+                                             dtype=np.uint64).astype(np.uint32)
+                    parts.append(torch.from_numpy(host.view(np.int32)).to(
+                        card)[head:])
+                offsets = [1000 + sum(widths[:d]) for d in range(len(widths))]
+                k10 = kernels.COMPACT_NONZERO.launches
+                k11 = kernels.POPCOUNT_WORDS.launches
+                got = kernels.compact_nonzero_sharded(parts, offsets, cap)
+                total = kernels.popcount_words_sharded(parts)
+                assert (kernels.COMPACT_NONZERO.launches - k10,
+                        kernels.POPCOUNT_WORDS.launches - k11) == (
+                            len(set(cards)),) * 2
+                want = kernels.compact_nonzero_sharded_plain(parts, offsets,
+                                                             cap)
+                err["compact_nonzero"] = max(err["compact_nonzero"], *(
+                    max_abs_err(g, w) for g, w in zip(got, want)))
+                err["popcount_words"] = max(err["popcount_words"], abs(
+                    int(total)
+                    - int(kernels.popcount_words_sharded_plain(parts))))
     torch.cuda.synchronize()
     return err
 
@@ -1292,7 +1423,7 @@ def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
     engine = install_sharded(db, torch, "8a")
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     sharded_kernels(engine, kernels, lowered, muts[0], err, timings)
-    compact_kernels(engine, torch, db, "8a")
+    compact_kernels(engine, kernels, torch, db, err, timings, "8a")
     groupby["8a"] = groupby_kernels(engine, kernels, torch, db, err, timings,
                                     "8a")
     with main.phase():
@@ -1339,6 +1470,7 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
         assert kernels.VM_RUN_SHARDED.launches == len(engine.shards.distinct)
         assert kernels.VM_RUN.launches == 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches == 1
+        assert kernels.POPCOUNT_WORDS.launches == len(engine.shards.distinct)
     results = {}
     for start in starts:
         words, count, muts = step(code, banks, dyns, fulls, start)
@@ -1500,8 +1632,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     the snapshot, keeps its shards of the port engine's bank and runs
     ShardedQueryStep on phase 8c's query at 8c's segment starts (`want`:
     its words' hashes, count and segment counts per start), which its
-    words, the all-reduced count and segment counts must equal; the VM
-    and K2 launched in every rank, no plain version, no JAX module. Then
+    words, the all-reduced count and segment counts must equal; the VM,
+    K11 and K2 launched in every rank, no plain version, no JAX module. Then
     the NCCL route on every machine: the worker, one rank with N_SHARDS
     shards on the first card, against the numpy oracle. Returns the
     ranks' times, memory and backends."""
@@ -1543,7 +1675,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
             assert (got["count"], got["mutation_counts"]) == (
                 ref["count"], ref["mutation_counts"]), (rank, start)
         assert vm_launched(report["launches"]), (rank, report["launches"])
-        for name in ("mutation_counts", "mutation_counts_sharded"):
+        for name in ("mutation_counts", "mutation_counts_sharded",
+                     "popcount_words"):
             assert report["launches"][name] > 0, (rank, name)
         assert not any(report["plain"].values()), (rank, report["plain"])
         assert report["banned"] == [], (rank, report["banned"])
@@ -1557,8 +1690,9 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
         f"{[r['device'] for r in reports]} ({n_cards} card(s)), "
         f"PW {reports[0]['n_words']} words: each rank's words, the count and "
         f"the 64 segment counts at segment starts {starts} equal phase 8c's "
-        f"one-process step; the VM (K6 with 2 shards a card, K1 with 1) and "
-        f"K2 launched in every rank, no plain version, no JAX module; "
+        f"one-process step; the VM (K6 with 2 shards a card, K1 with 1), "
+        f"K11 and K2 launched in every rank, no plain version, no JAX "
+        f"module; "
         f"snapshot saved in {out['save_s']:.1f} s, "
         f"ranks done in {out['ranks_s']:.1f} s; per rank: "
         + "; ".join(
@@ -1586,7 +1720,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     assert f"RESULT count={count} mut={mut}" in proc[1].read_text()
     assert worker["words"] == words.tolist() and worker["backend"] == "nccl"
     assert vm_launched(worker["launches"]) and worker["launches"][
-        "mutation_counts"] > 0, worker["launches"]
+        "mutation_counts"] > 0 and worker["launches"][
+        "popcount_words"] > 0, worker["launches"]
     assert not any(worker["plain"].values()), worker["plain"]
     main.add(worker["launches"], worker["plain"])
     log("8d worker", f"python -m lapis_silo_torch.parallel.distributed_worker "
@@ -1915,7 +2050,7 @@ def phase11(main: MainPath, kernels, torch, db, answers: dict,
                for label, (_p, report, _l) in procs.items()}
     for label, report in reports.items():
         assert vm_launched(report["launches"]), (label, report["launches"])
-        for name in ("mutation_counts", "group_counts"):
+        for name in ("mutation_counts", "group_counts", "popcount_words"):
             assert report["launches"][name] > 0, (label, name)
         assert not any(report["plain"].values()), (label, report["plain"])
         assert report["banned"] == [], (label, report["banned"])
@@ -2048,7 +2183,8 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
     """`answers` over HTTP from make_server on port 0 with SILO_HTTP_IMPL
     `impl` (and, with `fast`, the counts again through the native fast
     path), with the launch counts set to 0 just before and read just after:
-    the VM, K2 and K9 launched and no plain version ran. Returns the p50 ms
+    the VM, K2, K9, K10 (the served engine's COMPACT_MIN_WORDS is 0) and
+    K11 launched and no plain version ran. Returns the p50 ms
     per action (and the fast path's under "fast")."""
     from lapis_silo_torch.server import native_http
     from lapis_silo_torch.server.http_server import make_server
@@ -2072,7 +2208,8 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
             os.environ.pop("SILO_HTTP_IMPL", None)
         assert vm_launched({k.name: k.launches for k in kernels.KERNELS}), (
             f"the VM did not launch in {label}")
-        for k in (kernels.MUTATION_COUNTS, kernels.GROUP_COUNTS):
+        for k in (kernels.MUTATION_COUNTS, kernels.GROUP_COUNTS,
+                  kernels.POPCOUNT_WORDS, kernels.COMPACT_NONZERO):
             assert k.launches > 0, f"{k.name} did not launch in {label}"
         assert not any(k.plain_launches for k in kernels.KERNELS), label
         log(f"{label} launches", f"{ {k.name: k.launches for k in kernels.KERNELS} } "
@@ -2424,7 +2561,8 @@ def main() -> int:
                        ("Details", details_queries(big)),
                        ("Mutations", mutations_queries(big)))}
     log("5 oracle", f"host oracle answered in {time.perf_counter() - t0:.1f} s")
-    compaction = compact_kernels(big_engine, torch, big, "5")
+    compaction = compact_kernels(big_engine, kernels, torch, big, err,
+                                 timings, "5")
     groupby = {"5": groupby_kernels(big_engine, kernels, torch, big, err,
                                     timings, "5")}
     assert all(e == 0 for e in err.values()), err
@@ -2469,7 +2607,7 @@ def main() -> int:
     log("6 checks", f"main-path launches {main_path.launches}, plain-version "
         f"runs {main_path.plain}, JAX modules loaded {loaded}, total "
         f"{time.perf_counter() - t_start:.0f} s")
-    log("6 summary", "compaction (torch ops, no kernel) "
+    log("6 summary", "K10 and K11 and the compaction sweep "
         + json.dumps(compaction) + "; K9 by date and the group-by split "
         + json.dumps(groupby) + "; phase 8d " + json.dumps(pod)
         + "; phase 9 " + json.dumps(served)
@@ -2482,8 +2620,9 @@ def main() -> int:
 
     print(nvidia_smi())
     # no single PyTorch call computes any of these functions (torch has no
-    # popcount, no gather-VM, no CSR popcount or densify), so library_ms is
-    # null
+    # popcount, no gather-VM, no CSR popcount or densify, and its nonzero
+    # has no cap and waits for the card to learn its output's size), so
+    # library_ms is null
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name], "launches": main_path.launches[k.name],

@@ -65,10 +65,10 @@ import numpy as np
 import torch
 
 from ..parallel.shards import (
-    ShardLayout, gather_words, reduce_sum, resolve, split_words,
+    ShardLayout, gather_words, resolve, split_words,
 )
-from . import bitset, kernels, lowering, reductions
-from .reductions import clip_bounds, entry_chunks, popcount_words
+from . import bitset, kernels, lowering
+from .reductions import clip_bounds, entry_chunks
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
     M_MOVB, M_OR, M_XOR, MAX_BATCH_QUERIES, NO_DST, SERVE_LEN_BUCKET,
@@ -367,22 +367,64 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
 
 
 def compact_to_host(words: list[torch.Tensor], offsets: list[int], cap: int,
-                    device: torch.device, n_flat_words: int
-                    ) -> np.ndarray | None:
+                    n_flat_words: int) -> np.ndarray | None:
     """Host flat words [n_flat_words] from word shards (shard d's first word
     is global word offsets[d]) through their non-zero (index, word) pairs:
-    reductions.compact_nonzero per shard, queued behind the work that wrote
-    the words, then one copy of every shard's count and pairs from
-    `device`. None when more than `cap` words are non-zero."""
-    blocks = [reductions.compact_nonzero(part, cap, offset)
-              for part, offset in zip(words, offsets)]
-    packed = to_host(torch.stack([block.to(device) for block in blocks]))
+    kernels.compact_nonzero_sharded (K10 once per card, queued behind the
+    work that wrote the words), then each card's blocks in one copy into
+    one pinned host block, kept for the next call (a copy into pageable
+    memory would wait for the stream's queued work as a whole), and the
+    host's rebuild. None when more than `cap` words are non-zero."""
+    stacks = kernels.compact_nonzero_sharded(words, offsets, cap)
+    if stacks[0].device.type != "cuda":
+        return rebuild_from_blocks(torch.cat(stacks).numpy(), cap,
+                                   n_flat_words)
+    staged = _take_pinned((len(words), 1 + 2 * cap))
+    try:
+        row = 0
+        for stack in stacks:
+            staged[row:row + stack.shape[0]].copy_(stack, non_blocking=True)
+            row += stack.shape[0]
+        for stack in stacks:
+            torch.cuda.current_stream(stack.device).synchronize()
+        return rebuild_from_blocks(staged.numpy(), cap, n_flat_words)
+    finally:
+        _give_pinned(staged)
+
+
+# compact_to_host's pinned host blocks, free ones by shape: a call takes one
+# that no other call holds (a server answers from many threads), and pins
+# no memory once the pool holds as many as calls run at once
+_pinned_free: dict = {}
+_pinned_lock = threading.Lock()
+
+
+def _take_pinned(shape: tuple) -> torch.Tensor:
+    with _pinned_lock:
+        free = _pinned_free.get(shape)
+        if free:
+            return free.pop()
+    return torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+
+def _give_pinned(block: torch.Tensor) -> None:
+    with _pinned_lock:
+        _pinned_free.setdefault(tuple(block.shape), []).append(block)
+
+
+def rebuild_from_blocks(packed: np.ndarray, cap: int,
+                        n_flat_words: int) -> np.ndarray | None:
+    """The host's half of compact_to_host: flat uint32 words
+    [n_flat_words] from the shards' blocks (int32 [D, 1 + 2 cap]), or None
+    when their counts pass `cap`."""
     counts = packed[:, 0].astype(np.int64)
     if counts.sum() > cap:
         return None
     host = np.zeros(n_flat_words, dtype=np.uint32)
     for shard_block, n in zip(packed, counts):
-        host[shard_block[1:1 + n]] = shard_block[1 + cap:1 + cap + n]
+        # numpy scatters through intp indices; casting first is faster
+        host[shard_block[1:1 + n].astype(np.intp)] = (
+            shard_block[1 + cap:1 + cap + n].view(np.uint32))
     return host
 
 
@@ -977,11 +1019,18 @@ class DeviceEngine:
             self._gather_host(self.evaluate_device(filter_expr)))
 
     # from this many flat words on, evaluate_compact copies the non-zero
-    # words instead of the bitset: on an NVIDIA H100 80GB HBM3 (700 W) the
-    # bitset copy is faster per call at 131,072 and 312,512 words and the
-    # extraction at 1,048,576 (chip_smoke.py's compaction sweep). The cap
-    # is the reference's (device_engine.py:785).
-    COMPACT_MIN_WORDS = 1048576
+    # words instead of the bitset: the smallest size swept at which the
+    # extraction (K10, one copy into pinned memory, the host's rebuild) was
+    # faster per call than the bitset copy at both 400 and 16,384 non-zero
+    # words in every run, on an NVIDIA H100 80GB HBM3 at 700.00 W
+    # (chip_smoke.py's compaction sweep and scripts/torch_compact_ab.py,
+    # five runs). At 312,512 words: 0.0987-0.2387 and 0.1643-0.3135 ms
+    # against 0.2351-0.5402 and 0.2234-0.4389. At the reference's 131,072
+    # (device_engine.py:784) it won at 400 in all five but at 16,384 in
+    # two and lost in three (0.1112-0.2948 against 0.1553-0.2614): the
+    # host's rebuild and the block's launch and copy cost about what the
+    # 512 KB copy does. The cap is the reference's (device_engine.py:785).
+    COMPACT_MIN_WORDS = 312512
     COMPACT_CAP_WORDS = 16384
 
     def evaluate_compact(self, filter_expr) -> list[np.ndarray]:
@@ -989,8 +1038,9 @@ class DeviceEngine:
         Insertions; the reference's device_engine.py:782-822): after the VM
         launch, in the same queued work, each shard extracts its count of
         non-zero words and the first COMPACT_CAP_WORDS of their (global
-        index, word) pairs (reductions.compact_nonzero), and one copy brings
-        the counts and pairs to the host, which rebuilds the bitsets. When
+        index, word) pairs (K10, kernels.compact_nonzero_sharded), one copy
+        per card brings the counts and pairs to the host, which rebuilds
+        the bitsets (compact_to_host). When
         the pairs overflow the cap, the words the VM already wrote are
         copied instead (no second pass). Trivial FULL/ZERO filters and
         corpora under COMPACT_MIN_WORDS flat words copy the bitset."""
@@ -1008,8 +1058,7 @@ class DeviceEngine:
         non-zero (index, word) pairs while they fit the cap."""
         with self._on_stream():
             host = compact_to_host(words, self.shards.offsets,
-                                   self.COMPACT_CAP_WORDS, self.device,
-                                   self.n_flat_words)
+                                   self.COMPACT_CAP_WORDS, self.n_flat_words)
         return self._gather_host(words) if host is None else host
 
     def device_filter(self, filter_expr) -> "DeviceFilter":
@@ -1143,8 +1192,7 @@ class DeviceEngine:
             program = self.lower(filter_expr)[0]
         words, _counts = self._run(self._prepare_program(program))
         with self._on_stream():
-            return reduce_sum([popcount_words(part) for part in words],
-                              self.device)
+            return kernels.popcount_words_sharded(words)
 
     def count(self, filter_expr) -> int:
         """One count: host-answerable programs need no device work."""
@@ -1458,9 +1506,8 @@ class DeviceFilter:
     def popcount(self) -> int:
         if self._popcount is None:
             with self.engine._on_stream():
-                self._popcount = int(reduce_sum(
-                    [popcount_words(part) for part in self.parts],
-                    self.engine.device))
+                self._popcount = int(
+                    kernels.popcount_words_sharded(self.parts))
         return self._popcount
 
 

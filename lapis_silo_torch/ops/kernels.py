@@ -1,9 +1,11 @@
 """The port's hand-written CUDA kernels: build, bind, wrap, count.
 
 Six kernels carry the count and Mutations paths over both tiers of the
-bank and a seventh the group-by, each in ``csrc/`` (TPU kernels in
-``lapis_silo_tpu/ops/pallas_kernels.py``), and two wrappers launch them in
-the forms the TPU package wrote as kernels of their own:
+bank, a seventh the group-by and two more the compact extraction and the
+word popcount, each in ``csrc/`` (TPU kernels in
+``lapis_silo_tpu/ops/pallas_kernels.py``, or XLA code of the JAX package's
+device layer), and two wrappers launch them in the forms the TPU package
+wrote as kernels of their own:
 
 - ``vm_run`` (``csrc/vm_run.cu``): the filter VM, replacing ``:526``
   ``vm_run``; a program may come in segments (a batch's queries) that run
@@ -34,7 +36,16 @@ the forms the TPU package wrote as kernels of their own:
   the group-by reduction of a filter over per-sequence group codes (uint8,
   int16 or int32), counts per (partition, group), one launch per card over
   all of its word shards, replacing the XLA reduction ``_group_counts_jit``
-  (``lapis_silo_tpu/ops/reductions.py:23``), which is no Pallas kernel.
+  (``lapis_silo_tpu/ops/reductions.py:23``), which is no Pallas kernel;
+- ``compact_nonzero_sharded`` and ``compact_nonzero`` (``csrc/compact.cu``,
+  K10): each word shard's count of non-zero words and the first `cap` of
+  their (global index, word) pairs, one launch per card over all of its
+  shards, replacing the compact output of the XLA interpreter
+  (``lapis_silo_tpu/ops/vm.py:505-514``);
+- ``popcount_words_sharded`` and ``popcount_words`` (``csrc/compact.cu``,
+  K11): the total population count of the shards' words, one launch per
+  card, the cards' totals added on the first shard's device, replacing
+  ``_popcount_words_jit`` (``lapis_silo_tpu/ops/reductions.py:18``).
 
 At first use each source is compiled with its own ``nvcc`` (all started
 together) for ``sm_90a`` and the objects are linked into one shared library
@@ -115,9 +126,13 @@ POPCOUNT_ROWS = KernelCounts("popcount_rows_and_filter",
                              "lapis_silo_torch/csrc/mutation_counts.cu")
 GROUP_COUNTS = KernelCounts("group_counts",
                             "lapis_silo_torch/csrc/group_counts.cu")
+COMPACT_NONZERO = KernelCounts("compact_nonzero",
+                               "lapis_silo_torch/csrc/compact.cu")
+POPCOUNT_WORDS = KernelCounts("popcount_words",
+                              "lapis_silo_torch/csrc/compact.cu")
 KERNELS = (VM_RUN, MUTATION_COUNTS, SPARSE_COUNTS, DENSIFY_ROWS,
            DENSIFY_INTO_POOL, VM_RUN_SHARDED, MUTATION_COUNTS_SHARDED,
-           POPCOUNT_ROWS, GROUP_COUNTS)
+           POPCOUNT_ROWS, GROUP_COUNTS, COMPACT_NONZERO, POPCOUNT_WORDS)
 
 
 def reset_counts() -> None:
@@ -146,6 +161,9 @@ _SIGNATURES = {
                                      _I64, _P, _I64, _P, _P],
     "lapis_group_counts": [ctypes.POINTER(_I64), _I32, _I32, _I32, _I64,
                            _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P],
+    "lapis_compact_nonzero": [ctypes.POINTER(_I64), _I32, _I32, _I32, _P, _P,
+                              _I32, _P],
+    "lapis_popcount_words": [ctypes.POINTER(_I64), _I32, _I32, _P, _P, _P],
 }
 
 
@@ -443,6 +461,14 @@ def _shard_devices(tensors: list, *per_shard: list) -> list[torch.device]:
     return devices
 
 
+def _card_members(devices: list) -> dict:
+    """{device: the shard indices on it}, devices in first-seen order."""
+    members: dict = {}
+    for d, device in enumerate(devices):
+        members.setdefault(device, []).append(d)
+    return members
+
+
 def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
                    dyns: list, sparse_rows: list, fulls: list,
                    n_regs: int, segments=None) -> tuple[list, torch.Tensor]:
@@ -586,9 +612,7 @@ def shard_table(devices: list, shards: list) -> tuple[list, np.ndarray]:
         if max(shard[1], shard[3], shard[5]) >= 1 << 31 or shard[8] >= 1 << 30:
             raise ValueError("K6 takes row counts under 2^31 and shard "
                              "widths under 2^30 words")
-    groups: dict = {}
-    for index, device in enumerate(devices):
-        groups.setdefault(device, []).append(index)
+    groups = _card_members(devices)
     order = [index for members in groups.values() for index in members]
     table = np.zeros((len(order), SHARD_FIELDS), dtype=np.int64)
     table[:, :SHARD_FIELDS - 1] = np.asarray([shards[i] for i in order],
@@ -637,9 +661,7 @@ def _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls, n_regs,
     cards' counts are summed on devices[0]."""
     lib = load_library()
     widths = [full.shape[0] for full in fulls]
-    members: dict = {}
-    for d, device in enumerate(devices):
-        members.setdefault(device, []).append(d)
+    members = _card_members(devices)
     n_sm = min(map(_sm_count, members))
     target = K6_WARPS_PER_SM * n_sm
     n_live = max(int(np.count_nonzero(starts[1:] > starts[:-1])), 1)
@@ -1179,11 +1201,8 @@ def _group_counts_cards(words, codes, offsets, devices, part_words,
     code_bytes = codes[0].element_size()
     n_bins = k9_bins(codes[0].dtype, n_groups)
     shape = (n_partitions, n_groups)
-    members: dict = {}
-    for d, device in enumerate(devices):
-        members.setdefault(device, []).append(d)
     partials = []
-    for card, ds in members.items():
+    for card, ds in _card_members(devices).items():
         widths = tuple(words[d].shape[0] for d in ds)
         blk = k9_block(sum(widths), n_bins, code_bytes)
         rows, cf, n_ctas = k9_layout(widths, tuple(offsets[d] for d in ds),
@@ -1235,3 +1254,219 @@ def group_counts_sharded_plain(words: list, codes: list, offsets: list,
                                           part_words, n_partitions, n_groups)
                        for part, shard_codes, offset
                        in zip(words, codes, offsets)], devices[0])
+
+
+# -- K10, K11: the compact extraction and the word popcount ------------------
+
+# K10's tiles and K11's CTAs: 1,024 16-byte quads (4,096 words) each, as
+# csrc/compact.cu's kTileQuads; shards of one card in one launch's table
+COMPACT_TILE_QUADS = 1024
+COMPACT_MAX_SHARDS = 32
+# K10's scratch per stream holds the ticket and one descriptor a tile, in
+# buffers of at least this many entries
+_K10_MIN_SCRATCH = 1024
+
+
+@functools.lru_cache(maxsize=256)
+def compact_layout(widths: tuple, heads: tuple) -> tuple:
+    """The tiles of K10 and K11 over one card's shards: shard s holds
+    widths[s] words starting heads[s] words past a 16-byte boundary, so its
+    16-byte quads number ceil((head + n) / 4) and its tiles
+    max(1, ceil(quads / COMPACT_TILE_QUADS)) (an empty shard keeps one
+    tile: K10 writes its block there), numbered shard after shard. Per
+    shard (first tile, tiles), and the launch's tiles."""
+    if len(widths) > COMPACT_MAX_SHARDS:
+        raise ValueError(f"K10 and K11 take at most {COMPACT_MAX_SHARDS} "
+                         f"shards a card, got {len(widths)}")
+    rows, n_tiles = [], 0
+    for n, head in zip(widths, heads):
+        quads = -(-(head + n) // 4)
+        tiles = max(1, -(-quads // COMPACT_TILE_QUADS))
+        rows.append((n_tiles, tiles))
+        n_tiles += tiles
+    return tuple(rows), n_tiles
+
+
+def _heads(words: list) -> tuple:
+    """Each shard's first word's place in its 16-byte quad."""
+    return tuple(part.data_ptr() % 16 // 4 for part in words)
+
+
+def compact_table(words: list, blocks: list, offsets: list,
+                  rows: tuple) -> ctypes.Array:
+    """The shard table of K10 (blocks: each shard's output [1 + 2 cap]) or
+    K11 (blocks None), passed to the kernel by value: int64
+    [n_shards, 6], per shard its words' address, its block's address (0
+    for K11), width, offset (0 for K11) and its compact_layout row."""
+    table = (ctypes.c_longlong * (6 * len(rows)))()
+    for i, (part, row) in enumerate(zip(words, rows)):
+        out = 0 if blocks is None else blocks[i].data_ptr()
+        offset = 0 if offsets is None else offsets[i]
+        table[6 * i:6 * i + 6] = (part.data_ptr(), out, part.shape[0],
+                                  offset, *row)
+    return table
+
+
+def _check_compact(words: list, offsets: list, cap: int) -> list:
+    """K10's shards: int32 words [n_d] each, an offset each that keeps the
+    global indices inside int32, a cap >= 0; returns the devices."""
+    devices = _shard_devices(words, offsets)
+    for part, offset in zip(words, offsets):
+        _check("words", part, part.device, (None,))
+        if offset < 0 or offset + part.shape[0] > 2**31 - 1:
+            raise ValueError(f"global words [{offset}, "
+                             f"{offset + part.shape[0]}) outside int32")
+    if cap < 0:
+        raise ValueError(f"cap {cap} < 0")
+    return devices
+
+
+def compact_nonzero_sharded(words: list, offsets: list, cap: int) -> list:
+    """Every word shard's non-zero words as one int32 block [1 + 2 cap]
+    (shard d's words [n_d] on its device, its word 0 the global word
+    offsets[d]): the count of non-zero words, not capped; the global
+    indices of the first `cap` of them, ascending; their words; slots past
+    the count hold index offsets[d] and the shard's word 0 (0 for an empty
+    shard). Returns one int32 tensor [k, 1 + 2 cap] per distinct device of
+    the shards, in first-seen order, its rows the blocks of that device's
+    shards in shard order. On the cards K10 runs once per card over all of
+    its shards, on that card's current stream, queued behind the work that
+    wrote the words: nothing waits for the card."""
+    devices = _check_compact(words, offsets, cap)
+    if devices[0].type == "cpu":
+        return compact_nonzero_sharded_plain(words, offsets, cap)
+    if devices[0].type != "cuda":
+        raise ValueError(f"compact_nonzero_sharded: no kernel for device "
+                         f"{devices[0]}")
+    return _compact_cards(words, offsets, cap, devices)
+
+
+def compact_nonzero(words: torch.Tensor, cap: int,
+                    offset: int = 0) -> torch.Tensor:
+    """compact_nonzero_sharded for one shard: its block [1 + 2 cap]."""
+    return compact_nonzero_sharded([words], [offset], cap)[0][0]
+
+
+# per (card, stream): K10's scratch [clean, spare, entries of the spare
+# that the last launch dirtied]
+_k10_scratch: dict = {}
+_k10_lock = threading.Lock()
+
+
+def _compact_cards(words, offsets, cap, devices) -> list:
+    """K10 once per distinct card over all of its shards; the scratch the
+    launch uses arrives zeroed and it zeroes the other for the next."""
+    lib = load_library()
+    out = []
+    for card, ds in _card_members(devices).items():
+        shard_words = [words[d] for d in ds]
+        rows, n_tiles = compact_layout(
+            tuple(part.shape[0] for part in shard_words), _heads(shard_words))
+        blocks = torch.empty((len(ds), 1 + 2 * cap), dtype=torch.int32,
+                             device=card)
+        table = compact_table(shard_words, blocks, [offsets[d] for d in ds],
+                              rows)
+        stream = torch.cuda.current_stream(card)
+        with torch.cuda.device(card), _k10_lock:
+            # the lock keeps the launches in the order they take the scratch
+            key = (card, stream.cuda_stream)
+            state = _k10_scratch.get(key)
+            if state is None or state[0].shape[0] < 1 + n_tiles:
+                size = max(_K10_MIN_SCRATCH, 1 << n_tiles.bit_length())
+                state = [torch.zeros(size, dtype=torch.int64, device=card),
+                         torch.zeros(size, dtype=torch.int64, device=card),
+                         0]
+            clean, spare, dirty = state
+            err = lib.lapis_compact_nonzero(
+                table, len(ds), n_tiles, cap, clean.data_ptr(),
+                spare.data_ptr() if dirty else None, dirty,
+                stream.cuda_stream)
+            _raise_on(err, "compact_nonzero")
+            _k10_scratch[key] = [spare, clean, 1 + n_tiles]
+        COMPACT_NONZERO.add()
+        out.append(blocks)
+    return out
+
+
+def compact_nonzero_plain(words: torch.Tensor, cap: int,
+                          offset: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of compact_nonzero (ops/reductions.py)."""
+    COMPACT_NONZERO.add(plain=True)
+    return reductions.compact_nonzero(words, cap, offset)
+
+
+def compact_nonzero_sharded_plain(words: list, offsets: list,
+                                  cap: int) -> list:
+    """The plain PyTorch version of compact_nonzero_sharded:
+    compact_nonzero_plain per shard, stacked per device."""
+    devices = _check_compact(words, offsets, cap)
+    return [torch.stack([compact_nonzero_plain(words[d], cap, offsets[d])
+                         for d in ds])
+            for ds in _card_members(devices).values()]
+
+
+def popcount_words_sharded(words: list) -> torch.Tensor:
+    """The total population count of every word shard's int32 words (each
+    on its device): a 0-d int64 on the first shard's device. On the cards
+    K11 runs once per card over all of its shards, on that card's current
+    stream, and the cards' totals are added on the first shard's device."""
+    devices = _shard_devices(words)
+    for part in words:
+        _check("words", part, part.device, (None,))
+    if devices[0].type == "cpu":
+        return popcount_words_sharded_plain(words)
+    if devices[0].type != "cuda":
+        raise ValueError(f"popcount_words_sharded: no kernel for device "
+                         f"{devices[0]}")
+    return _popcount_cards(words, devices)
+
+
+def popcount_words(words: torch.Tensor) -> torch.Tensor:
+    """popcount_words_sharded for one shard."""
+    return popcount_words_sharded([words])
+
+
+# per (card, stream): the int64 total the last K11 launch on that stream
+# zeroed for the next
+_k11_spares: dict = {}
+
+
+def _popcount_cards(words, devices) -> torch.Tensor:
+    """K11 once per distinct card over all of its shards into a total that
+    the launch before zeroed; the totals then added on devices[0]."""
+    lib = load_library()
+    totals = []
+    for card, ds in _card_members(devices).items():
+        shard_words = [words[d] for d in ds]
+        rows, n_tiles = compact_layout(
+            tuple(part.shape[0] for part in shard_words), _heads(shard_words))
+        table = compact_table(shard_words, None, None, rows)
+        stream = torch.cuda.current_stream(card)
+        with torch.cuda.device(card), _k10_lock:
+            key = (card, stream.cuda_stream)
+            total = _k11_spares.pop(key, None)
+            if total is None:
+                total = torch.zeros((), dtype=torch.int64, device=card)
+            spare = torch.empty((), dtype=torch.int64, device=card)
+            err = lib.lapis_popcount_words(table, len(ds), n_tiles,
+                                           total.data_ptr(), spare.data_ptr(),
+                                           stream.cuda_stream)
+            _raise_on(err, "popcount_words")
+            _k11_spares[key] = spare
+        POPCOUNT_WORDS.add()
+        totals.append(total)
+    return reduce_sum(totals, devices[0])
+
+
+def popcount_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of popcount_words (ops/reductions.py)."""
+    POPCOUNT_WORDS.add(plain=True)
+    return reductions.popcount_words(words)
+
+
+def popcount_words_sharded_plain(words: list) -> torch.Tensor:
+    """The plain PyTorch version of popcount_words_sharded:
+    popcount_words_plain per shard and the same sum."""
+    devices = _shard_devices(words)
+    return reduce_sum([popcount_words_plain(part) for part in words],
+                      devices[0])

@@ -3,10 +3,10 @@
 Counterparts of ``_popcount_words_jit``, ``_group_counts_jit``,
 ``_mutation_counts_jit`` and ``_sparse_mutation_counts_jit`` in
 ``lapis_silo_tpu/ops/reductions.py``, and of the fused nonzero-word
-extraction of ``lapis_silo_tpu/ops/vm.py:505-514``. ``popcount_words`` and
-``compact_nonzero`` run as plain tensor ops on every device (the reference
-left both to XLA, too). ``group_counts``, ``mutation_counts`` and
-``sparse_counts`` are the plain versions of the group-by and Mutations
+extraction of ``lapis_silo_tpu/ops/vm.py:505-514``. They are the plain
+versions of the port's kernels: ``popcount_words`` and ``compact_nonzero``
+of K11 and K10 (``csrc/compact.cu``), ``group_counts``,
+``mutation_counts`` and ``sparse_counts`` of the group-by and Mutations
 kernels (``csrc/group_counts.cu``, ``csrc/mutation_counts.cu``,
 ``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
 CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
@@ -37,9 +37,8 @@ def compact_nonzero(words: torch.Tensor, cap: int, offset: int = 0
     global word `offset`) as one int32 block [1 + 2 cap] on their device:
     the count of non-zero words, then the global indices of the first `cap`
     of them, ascending, then their words; slots past the count hold index
-    `offset` and its word (the reference's fill value 0). Fixed-size: a
-    prefix sum of `words != 0` and a scatter, so it queues behind the launch
-    that wrote the words and nothing waits for the card."""
+    `offset` and its word (the reference's fill value 0; word 0 for an
+    empty shard). Fixed-size: a prefix sum of `words != 0` and a scatter."""
     device = words.device
     nonzero = words != 0
     rank = torch.cumsum(nonzero, 0) - 1  # rank among the non-zero words
@@ -52,7 +51,7 @@ def compact_nonzero(words: torch.Tensor, cap: int, offset: int = 0
     block = torch.empty(1 + 2 * cap, dtype=torch.int32, device=device)
     block[0] = nonzero.sum()
     block[1:1 + cap] = local + offset
-    block[1 + cap:] = words[local]
+    block[1 + cap:] = words[local] if words.shape[0] else 0
     return block
 
 

@@ -9,9 +9,10 @@ device l of `rank`, L local devices per rank) owns the words
 [g*PW/D, (g+1)*PW/D) of every bank row, dyn row and the full mask, D = world
 size x L shards in all. That is the order ``jax.devices()`` gives under
 ``jax.distributed``: process-major. The filter VM (K1,
-``kernels.vm_run_sharded``) and the 64-row Mutations reduction (K2,
-``kernels.mutation_counts_sharded``) run on each local shard alone, and
-their counts are added on the rank's first device. Across ranks one
+``kernels.vm_run_sharded``), the count of its words (K11,
+``kernels.popcount_words_sharded``) and the 64-row Mutations reduction
+(K2, ``kernels.mutation_counts_sharded``) run on each local shard alone,
+and their counts are added on the rank's first device. Across ranks one
 ``torch.distributed.all_reduce`` adds them, where the reference's
 XLA-inserted all-reduces land (``parallel/distributed.py`` joins the
 processes). A plain list of devices is the one-process mesh, with no
@@ -25,9 +26,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import kernels
-from ..ops.reductions import popcount_words
 from ..ops.vm import ALU, B_SPARSE, MAX_REGS, wire_bsrc, wire_opcode
-from .shards import ShardLayout, reduce_sum, resolve
+from .shards import ShardLayout, resolve
 
 # rows of the bank segment whose per-row counts a step returns
 SEGMENT_ROWS = 64
@@ -128,9 +128,7 @@ class ShardedQueryStep:
         words, _emits = kernels.vm_run_sharded(
             torch.from_numpy(host_code), host_code.shape[1], banks, dyns,
             self._no_sparse, fulls, MAX_REGS)
-        primary = self.layout.devices[0]
-        count = reduce_sum([popcount_words(part).to(torch.int32)
-                            for part in words], primary)
+        count = kernels.popcount_words_sharded(words).to(torch.int32)
         mutation_counts = kernels.mutation_counts_sharded(
             banks, words, start, SEGMENT_ROWS)
         if not self.mesh.joined:
