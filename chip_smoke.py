@@ -23,7 +23,10 @@ Phases, one line each or more (the last line is the JSON verdict):
      clear, on one shard, on shard windows, on 3 shards of ragged widths
      round-robin on the cards and on 4 of one card; K10 and K11 on shards
      just under and past whole tiles, views that start inside a 16-byte
-     quad, empty shards, at every fill around the cap) and at the
+     quad, empty shards, at every fill around the cap; the VM with the
+     filter's epilogue, vm_filter_sharded, on random programs over one
+     shard, 4 of one card and 3 of ragged widths over the cards, its total
+     and blocks also against K11 and K10 on its words) and at the
      main paths' shapes (the 512-query batch in its per-query segments, and
      as one segment), with both times there (for the VM also its wrapper's
      wall time per call, host time included) and each kernel's bound, the
@@ -44,22 +47,29 @@ Phases, one line each or more (the last line is the JSON verdict):
      to the host oracle;
   5. at 1,048,576 sequences x 29,903 positions in 4 partitions (a dense bank
      of about 11.8 GB on the card): set-up holds K10 (the compact
-     extraction) and K11 (the word popcount) to their plain versions at
-     the engine's shapes, at fills 0, 1, cap - 1, cap, cap + 1 and 5 cap,
-     one launch per card, compares evaluate_compact with evaluate() below
-     and above its cap and times K10 and K11 against the torch-op chains
-     they replaced, then times the extraction and the bitset copy as whole
+     extraction) and K11 (the word popcount), which the engine's routes no
+     longer launch, to their plain versions at the engine's shapes, at
+     fills 0, 1, cap - 1, cap, cap + 1 and 5 cap, one launch per card, the
+     VM launch with the filter's epilogue (its total and compact blocks,
+     what the routes take) to the plain versions on its words, compares
+     evaluate_compact with evaluate() below and above its cap, times that
+     launch against the VM alone and the VM followed by K11 or by K10, and
+     K10 and K11 against the torch-op chains they replaced, then times the
+     extraction and the bitset copy as whole
      calls on synthetic words from 131,072 to 4,194,304 flat words, the
-     host's rebuild apart (COMPACT_MIN_WORDS comes from this), and K9 with
+     host's rebuild apart (K10's extraction, off the main path;
+     scripts/torch_fused_ab.py times the VM launch's own against the
+     copy, which is where COMPACT_MIN_WORDS is checked), and K9 with
      its plain version for every group-by column list (each list's codes
      held as uint8); then the 64 counts, 8 group-by queries (by date,
      country, date and country, age; K9 launched once per query per card,
      here and in 7, 8a and 8b), two Details through evaluate_compact
-     (K10 launched once per query per card, here and in 7 and 8a;
-     COMPACT_MIN_WORDS set to 0
+     (one VM launch per query per card yields the compact blocks, and no
+     K10, here and in 7 and 8a; COMPACT_MIN_WORDS set to 0
      on the engine: the corpus has fewer flat words; one filter under the
-     cap, one over) and two Mutations queries (K11 launched once per query
-     per card for the filter's total, in every phase), all equal to the
+     cap, one over), two Mutations queries (one VM launch per query per
+     card yields the filter's total, and no K11, in every phase) and
+     counts of those filters through count (the same), all equal to the
      host oracle;
   8a. phase 5's corpus and oracle answers on the word-sharded engine: the
      single-device engine freed, install(db, ..., devices=[4 shards]) places
@@ -72,8 +82,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      over all 32,768 words in one launch; K10, K11 and K9 over the 4
      shards in one launch per card;
   8c. on the same shards, lapis_silo_torch.parallel.mesh.ShardedQueryStep:
-     one program's words, count (K11, one launch per card) and 64 segment
-     counts (the main segment's
+     one program's words, count (from the VM launch, one per card; no K11)
+     and 64 segment counts (the main segment's
      start, and a start past the end, clamped) equal to the plain versions
      on the card and a popcount on the host, its time per call on the card
      and wall; then parallel.dryrun.dryrun_multichip on 4 shards of the
@@ -88,7 +98,8 @@ Phases, one line each or more (the last line is the JSON verdict):
      bank, run 8c's program at 8c's segment starts: each rank's words
      (by hash), the all-reduced count and 64 segment counts equal 8c's;
      per rank the VM (K6, or K1 with one shard a card) and K2 launched,
-     no plain version, no JAX module; the step's busy time on the card
+     no K10 or K11, no plain version, no JAX module; the step's busy time
+     on the card
      (torch.profiler) and wall per call, the all-reduce's wall time
      alone, peak and held device memory; then
      lapis_silo_torch.parallel.distributed_worker as one NCCL rank with 4
@@ -153,12 +164,13 @@ Phases, one line each or more (the last line is the JSON verdict):
      card's name
      and power limit;
   6. assertions: every kernel launched during phases 4, 5, 7, 8, 9, 10 and
-     11 (phase 8d's and 11's counts come from their processes; but
-     popcount_rows_and_filter, which no engine path calls) and no plain
-     version ran there, the VM (K1, or K6 where a card holds several
-     shards), K2, K9 and K11 launched in phases 9 and 10 (K10 too) and in
-     each process of phase 11, no module of jax* or lapis_silo_tpu* was loaded,
-     the device path stayed on.
+     11 (phase 8d's and 11's counts come from their processes) but those
+     of OFF_PATH: popcount_rows_and_filter, which no engine path calls, and
+     K10 and K11, whose work the VM launch does (none of them launched
+     there); no plain version ran there, the VM (K1, or K6 where a card
+     holds several shards), K2 and K9 launched in phases 9 and 10 and in
+     each process of phase 11, no module of jax* or lapis_silo_tpu* was
+     loaded, the device path stayed on.
 
 Each main-path phase runs with the launch counts set to 0 just before it and
 read just after; the comparisons between phases are not counted. There is no
@@ -196,8 +208,12 @@ DEPLOYMENT = dict(n_rows=1048576, length=29903, n_partitions=4)
 TWO_TIER = dict(n_rows=2097152, length=29903, n_partitions=8)
 INGEST = dict(n_rows=65536, length=29903, seed=0)
 N_SHARDS = 4
-# kernels that no main-path phase runs (they have no engine caller)
-OFF_PATH = ("popcount_rows_and_filter",)
+# kernels that no main-path phase runs: K8 has no engine caller, and the
+# routes take K10's and K11's work from the VM launch that writes the
+# filter (kernels.vm_filter_sharded)
+OFF_PATH = ("popcount_rows_and_filter", "compact_nonzero", "popcount_words")
+# the VM's launch counts: K1 where a card holds one shard, K6 several
+VM_KERNELS = ("vm_run", "vm_run_sharded")
 # JAX and the JAX package: no module of either may be loaded
 JAX_MODULES = ("jax", "lapis_silo_tpu")
 # the least time of a kernel's work: its bytes over the H100's HBM rate, or
@@ -214,9 +230,9 @@ REPLACES = {name: f"lapis_silo_tpu/ops/pallas_kernels.py:{line}" for name, line
                 ("popcount_rows_and_filter", 104))}
 # K9's, K10's and K11's references are XLA code, no Pallas kernel: the
 # group-by reduction, the interpreter's compact output, the word popcount
-REPLACES["group_counts"] = "lapis_silo_tpu/ops/reductions.py:23"
+REPLACES["group_counts"] = "lapis_silo_tpu/ops/reductions.py:24"
 REPLACES["compact_nonzero"] = "lapis_silo_tpu/ops/vm.py:505"
-REPLACES["popcount_words"] = "lapis_silo_tpu/ops/reductions.py:18"
+REPLACES["popcount_words"] = "lapis_silo_tpu/ops/reductions.py:19"
 # the dashboard group-by queries of phases 5, 7, 8 and 9
 GROUP_BYS = (["date"], ["country"], ["date", "country"], ["age"])
 
@@ -371,7 +387,26 @@ def vm_launched(launches: dict) -> bool:
     """Whether the filter VM ran on the card, by launch counts per kernel
     name: K1 where an engine has one shard per card, K6 (vm_run_sharded)
     where a card holds several."""
-    return launches["vm_run"] + launches["vm_run_sharded"] > 0
+    return sum(launches[name] for name in VM_KERNELS) > 0
+
+
+def vm_launches(kernels) -> int:
+    """The VM's launches so far (K1 and K6)."""
+    return kernels.VM_RUN.launches + kernels.VM_RUN_SHARDED.launches
+
+
+def fused_launches(kernels, phase: str, n_cards: int, fn):
+    """fn()'s result, asserting that it ran one VM launch per card and no
+    standalone K10 or K11: the route's total or blocks came from the VM
+    launch that wrote the filter."""
+    before = (vm_launches(kernels), kernels.COMPACT_NONZERO.launches,
+              kernels.POPCOUNT_WORDS.launches)
+    out = fn()
+    after = (vm_launches(kernels), kernels.COMPACT_NONZERO.launches,
+             kernels.POPCOUNT_WORDS.launches)
+    assert (after[0] - before[0], after[1] - before[1],
+            after[2] - before[2]) == (n_cards, 0, 0), (phase, before, after)
+    return out
 
 
 def oracle(db, queries: list[str]) -> list[dict]:
@@ -471,18 +506,18 @@ def run_details(db, engine, queries: list[str], want: list[dict],
     for query, expected in zip(queries, want):
         flt = Query(query).filter
         nonzero = sum(int(np.count_nonzero(w)) for w in engine.evaluate(flt))
-        launches = kernels.COMPACT_NONZERO.launches
         t0 = time.perf_counter()
-        got = db.execute_query(query)
+        got = fused_launches(kernels, phase, n_cards,
+                             lambda: db.execute_query(query))
         ms = (time.perf_counter() - t0) * 1e3
         assert got == expected, query
-        assert kernels.COMPACT_NONZERO.launches - launches == n_cards, phase
         log(phase, f"Details through evaluate_compact (COMPACT_MIN_WORDS set "
             f"to 0 on this engine: {engine.n_flat_words} flat words) equals "
             f"the host oracle; {nonzero} non-zero words, "
             f"{'under' if nonzero <= engine.COMPACT_CAP_WORDS else 'over'} "
-            f"the cap of {engine.COMPACT_CAP_WORDS}; K10 launched once per "
-            f"card ({n_cards}); {ms:.2f} ms")
+            f"the cap of {engine.COMPACT_CAP_WORDS}; one VM launch per card "
+            f"({n_cards}) wrote the filter and its compact blocks, no K10; "
+            f"{ms:.2f} ms")
 
 
 def compact_kernels(engine, kernels, torch, db, err: dict, timings: dict,
@@ -534,6 +569,37 @@ def compact_kernels(engine, kernels, torch, db, err: dict, timings: dict,
             max_abs_err(g, w) for g, w in zip(got, want)))
         err["popcount_words"] = max(err["popcount_words"], abs(
             int(total) - int(kernels.popcount_words_sharded_plain(words))))
+    # the VM launch with the filter's epilogue, as the routes run it, on
+    # the two Details filters' programs: its words and counts equal the
+    # VM's alone, its total and blocks the plain versions' on its words
+    vm_key = "vm_run" if len(engine.shards) == 1 else "vm_run_sharded"
+    programs = {}
+    for name, flt in (("under the cap", below), ("over the cap", above)):
+        inputs = engine.kernel_inputs(engine._prepare_program(
+            engine.lower(flt)[0]))
+        programs[name] = inputs
+        out = kernels.vm_filter_sharded(*inputs[:-1], offsets=offsets,
+                                        cap=cap)
+        vm_words, vm_counts = kernels.vm_run_sharded(*inputs)
+        err[vm_key] = max(
+            err[vm_key], *map(max_abs_err, out.words, vm_words),
+            max_abs_err(out.counts, vm_counts),
+            abs(int(out.total) - int(kernels.popcount_words_sharded_plain(
+                out.words))),
+            *(max_abs_err(g, w) for g, w in zip(
+                out.blocks, kernels.compact_nonzero_sharded_plain(
+                    out.words, offsets, cap))))
+    inputs = programs["under the cap"]
+    fused = {
+        "vm_ms": cuda_ms(lambda: kernels.vm_run_sharded(*inputs), reps=50),
+        "vm_total_ms": cuda_ms(
+            lambda: kernels.vm_filter_sharded(*inputs[:-1]), reps=50),
+        "vm_and_k11_ms": cuda_ms(lambda: kernels.popcount_words_sharded(
+            kernels.vm_run_sharded(*inputs)[0]), reps=50),
+        "vm_compact_ms": cuda_ms(lambda: kernels.vm_filter_sharded(
+            *inputs[:-1], offsets=offsets, cap=cap), reps=50),
+        "vm_and_k10_ms": cuda_ms(lambda: kernels.compact_nonzero_sharded(
+            kernels.vm_run_sharded(*inputs)[0], offsets, cap), reps=50)}
     words = cases["under the cap"]
     pw, n_shards = engine.n_flat_words, len(engine.shards)
     k10 = (cuda_ms(lambda: kernels.compact_nonzero_sharded(words, offsets,
@@ -559,8 +625,13 @@ def compact_kernels(engine, kernels, torch, db, err: dict, timings: dict,
         f"{bound(*k10[2:])[0]:.5f} ms), K11 {k11[0]:.4f} ms (plain "
         f"{k11[1]:.4f} ms, bound {bound(*k11[2:])[0]:.5f} ms); per call "
         f"{compact_wall:.4f} ms against {full_wall:.4f} ms for evaluate() "
-        f"(overflow {overflow_wall:.4f} ms)")
-    return {"k10_ms": k10[0], "k10_plain_ms": k10[1],
+        f"(overflow {overflow_wall:.4f} ms); the filter's VM launch on the "
+        f"card, ms: alone {fused['vm_ms']:.4f}, with its total "
+        f"{fused['vm_total_ms']:.4f} (then K11: {fused['vm_and_k11_ms']:.4f}),"
+        f" with its total and compact blocks {fused['vm_compact_ms']:.4f} "
+        f"(then K10: {fused['vm_and_k10_ms']:.4f}); its words, counts, "
+        f"total and blocks bit-exact; {nvidia_smi()}")
+    return {"fused": fused, "k10_ms": k10[0], "k10_plain_ms": k10[1],
             "k10_bound_ms": bound(*k10[2:])[0], "k11_ms": k11[0],
             "k11_plain_ms": k11[1], "k11_bound_ms": bound(*k11[2:])[0],
             "wall": compact_wall, "evaluate_wall": full_wall,
@@ -692,19 +763,20 @@ def compact_bound(n_words: int, cap: int, n_shards: int = 1) -> tuple:
     return bound(4 * n_words + 4 * (1 + 2 * cap) * n_shards, 2 * n_words)
 
 
-# flat word counts of the compaction sweep: the JAX engine's
-# COMPACT_MIN_WORDS, the 10,000,000 x 32-partition corpus' flat axis (the
-# port's COMPACT_MIN_WORDS), and two larger corpora
+# flat word counts of the compaction sweep: COMPACT_MIN_WORDS (the JAX
+# engine's and the port's), the 10,000,000 x 32-partition corpus' flat
+# axis, and two larger corpora
 SWEEP_WORDS = (131072, 312512, 1048576, 4194304)
 
 
 def compact_sweep(engine, kernels, torch) -> dict:
-    """evaluate()'s bitset copy against evaluate_compact's extraction (K10,
-    one copy of the blocks into pinned memory, the host's rebuild) as whole
-    calls (wall time per call, the host's rebuild included) on synthetic
-    flat words on the card at SWEEP_WORDS, 400 non-zero words (a selective
-    filter) and COMPACT_CAP_WORDS of them (the most the extraction takes);
-    the VM launch before them is the same for both and left out. Each
+    """evaluate()'s bitset copy against the extraction through K10 (off
+    the main path, whose VM launch writes the blocks itself; one copy of
+    the blocks into pinned memory, the host's rebuild) as whole calls (wall
+    time per call, the host's rebuild included) on synthetic flat words on
+    the card at SWEEP_WORDS, 400 non-zero words (a selective filter) and
+    COMPACT_CAP_WORDS of them (the most the extraction takes); no VM
+    launch runs before them. Each
     extraction is checked against the copy. Beside them: K10's card time
     against the torch-op chain it replaced (reductions.compact_nonzero) and
     its bound, K11's against the popcount chain and the words' bytes over
@@ -713,7 +785,7 @@ def compact_sweep(engine, kernels, torch) -> dict:
     at which the extraction is faster at both fills."""
     from lapis_silo_torch.ops import reductions
     from lapis_silo_torch.ops.device_engine import (
-        compact_to_host, rebuild_from_blocks)
+        blocks_to_host, rebuild_from_blocks)
     from lapis_silo_torch.ops.words import to_host
     from lapis_silo_torch.parallel.shards import gather_words
 
@@ -727,8 +799,8 @@ def compact_sweep(engine, kernels, torch) -> dict:
                 1, 1 << 32, size=n_hot, dtype=np.uint64).astype(np.uint32)
             words = torch.from_numpy(host.view(np.int32)).to(device)
             copy = lambda: to_host(gather_words([words], "cpu"))  # noqa: E731
-            extract = lambda: compact_to_host(  # noqa: E731
-                [words], [0], cap, n)
+            extract = lambda: blocks_to_host(  # noqa: E731
+                kernels.compact_nonzero_sharded([words], [0], cap), cap, n)
             assert np.array_equal(extract(), host) and np.array_equal(
                 copy(), host)
             # copy, extract, extract, copy, twice: the median of each four
@@ -763,7 +835,7 @@ def compact_sweep(engine, kernels, torch) -> dict:
                    if r["words"] == n)]
     log("5 compact sweep", "whole-call ms (median of 4 alternating "
         "readings), bitset copy (evaluate) against extraction "
-        "(evaluate_compact), per flat words/non-zero words: "
+        "through K10, per flat words/non-zero words: "
         + "; ".join(f"{r['words']}/{r['nonzero']}: {r['evaluate_ms']:.4f} vs "
                     f"{r['compact_ms']:.4f} (host rebuild "
                     f"{r['rebuild_ms']:.4f}; K10 {r['k10_card_ms']:.4f} on "
@@ -797,21 +869,41 @@ def run_counts(db, queries: list[str], want: list[dict], phase: str) -> None:
 
 
 def run_mutations(db, queries: list[str], want: list[dict], phase: str) -> None:
-    """Each Mutations query against the oracle's answer, its filter total
-    counted by K11 once per card of the engine."""
+    """Each Mutations query against the oracle's answer, its filter and the
+    filter's total from one VM launch per card of the engine (no K11)."""
     from lapis_silo_torch.ops import kernels
 
     n_cards = len(db.device_engine.shards.distinct)
     for query, expected in zip(queries, want):
-        launches = kernels.POPCOUNT_WORDS.launches
         t0 = time.perf_counter()
-        got = db.execute_query(query)
+        got = fused_launches(kernels, phase, n_cards,
+                             lambda: db.execute_query(query))
         ms = (time.perf_counter() - t0) * 1e3
         assert got == expected, query
-        assert kernels.POPCOUNT_WORDS.launches - launches == n_cards, phase
         log(phase, f"Mutations ({len(got['queryResult'])} rows) equals the "
-            f"host oracle; K11 launched once per card ({n_cards}); "
-            f"{ms:.2f} ms")
+            f"host oracle; one VM launch per card ({n_cards}) wrote the "
+            f"filter and its total, no K11; {ms:.2f} ms")
+
+
+def run_count_calls(db, engine, queries: list[str], phase: str) -> None:
+    """DeviceEngine.count_async (what count runs where the host cannot
+    answer) of each query's filter against the host oracle's Aggregated
+    count, each from one VM launch per card and no K11."""
+    from lapis_silo_torch.ops import kernels
+    from lapis_silo_torch.query.engine import Query
+
+    n_cards = len(engine.shards.distinct)
+    bodies = [json.dumps({"action": {"type": "Aggregated"},
+                          "filterExpression": json.loads(q)[
+                              "filterExpression"]}) for q in queries]
+    want = [w["queryResult"][0]["count"] for w in oracle(db, bodies)]
+    got = [int(fused_launches(
+        kernels, phase, n_cards,
+        lambda: engine.count_async(Query(body).filter))) for body in bodies]
+    assert got == want, (got, want)
+    log(phase, f"{len(bodies)} counts through DeviceEngine.count_async equal "
+        f"the host oracle ({got}); one VM launch per card ({n_cards}) each, "
+        f"no K11")
 
 
 def random_stream(rng, n_leaves: int, n_parts: int, part_words: int,
@@ -1042,8 +1134,72 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
                 err["popcount_words"] = max(err["popcount_words"], abs(
                     int(total)
                     - int(kernels.popcount_words_sharded_plain(parts))))
+    fused_random(kernels, vm, torch, device, rng, err)
     torch.cuda.synchronize()
     return err
+
+
+def fused_random(kernels, vm, torch, device, rng, err: dict) -> None:
+    """The VM with the filter's epilogue (vm_filter_sharded) on random single
+    programs: one shard (K1: its narrow and wide forms for the total, the
+    wide form compacting), 4 shards of one card (K6 narrow for the total,
+    wide with 16-byte runs compacting; and 4 wide ones for the total) and 3
+    of ragged widths round-robin on the visible cards (K6 wide, word runs);
+    caps under and over the fill; words, counts, total and blocks against
+    its plain version, and its total and blocks against K11 and K10 on its
+    words. The largest errors go into `err` under vm_run and
+    vm_run_sharded."""
+    n_cards = torch.cuda.device_count()
+    for splits, cards in (([2045], [device]), ([70000], [device]),
+                          ([8192] * 4, [device] * 4),
+                          ([180000] * 4, [device] * 4),
+                          ([3000, 1, 6000],
+                           [torch.device(DEVICE, d % n_cards)
+                            for d in range(3)])):
+        pw = sum(splits)
+        bank = rng.integers(0, 1 << 32, size=(16, pw), dtype=np.uint32)
+        bank[:, rng.random(pw) < 0.9] = 0
+        full = np.full(pw, 0xFFFFFFFF, dtype=np.uint32)
+        full[-1] = 0x1F
+        edges = np.cumsum([0] + splits)
+        on = [[torch.from_numpy(np.ascontiguousarray(
+            a[..., lo:hi]).view(np.int32)).to(card)
+            for lo, hi, card in zip(edges, edges[1:], cards)]
+            for a in (bank, bank[:3], bank[:2], full)]
+        offsets = [int(lo) for lo in edges[:-1]]
+        key = "vm_run" if len(splits) == 1 else "vm_run_sharded"
+        for n in (5, 301):
+            opcodes = rng.choice([vm.ALU] * 6 + [vm.EMIT_COUNT, vm.NOP],
+                                 size=n)
+            operands = rng.integers(-4, 20, size=n)
+            emits = opcodes == vm.EMIT_COUNT
+            operands[emits] = rng.choice([0, 1, 4095, 4096, -1],
+                                         size=int(emits.sum()))
+            regspec = (rng.integers(0, 8, size=n)
+                       | (rng.integers(0, 8, size=n) << 8)
+                       | (rng.integers(0, 8, size=n) << 16)
+                       | (rng.integers(0, 5, size=n) << 24)
+                       | (rng.integers(0, 6, size=n) << 28))
+            args = (torch.from_numpy(vm.pack_code_array(
+                512, opcodes, operands, regspec)), vm._round_instr(n), *on, 8)
+            for cap in ((None,) if splits[0] == 180000 else
+                        (None, 2, 400, 16384)):
+                kw = {} if cap is None else {"offsets": offsets, "cap": cap}
+                got = kernels.vm_filter_sharded(*args, **kw)
+                want = kernels.vm_filter_sharded_plain(*args, **kw)
+                err[key] = max(
+                    err[key], *map(max_abs_err, got.words, want.words),
+                    max_abs_err(got.counts, want.counts),
+                    abs(int(got.total) - int(want.total)),
+                    abs(int(got.total) - int(kernels.popcount_words_sharded(
+                        got.words))))
+                if cap is None:
+                    continue
+                for g, w, k in zip(got.blocks, want.blocks,
+                                   kernels.compact_nonzero_sharded(
+                                       got.words, offsets, cap)):
+                    err[key] = max(err[key], max_abs_err(g, w),
+                                   max_abs_err(g, k))
 
 
 def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
@@ -1284,6 +1440,8 @@ def two_tier_path(main: MainPath, kernels, engine, answers: dict,
                     f"{labels[2]} group-by", engine)
         run_details(db, engine, answers["details"], answers["want_details"],
                     f"{labels[2]} details")
+        run_count_calls(db, engine, answers["muts"] + answers["details"],
+                        f"{labels[2]} counts")
         assert db._engine._use_device
         assert kernels.GROUP_COUNTS.launches > 0
 
@@ -1437,6 +1595,7 @@ def phase8a(main: MainPath, kernels, torch, db, answers: dict, err: dict,
             f"the host oracle; {wide_s * 1e3:.2f} ms ({len(wide) / wide_s:.0f} "
             f"queries/s, lowering excluded)")
         run_mutations(db, muts[:1], want_muts[:1], "8a mutations")
+        run_count_calls(db, engine, muts + answers["Details"][0], "8a counts")
         assert db._engine._use_device
         assert kernels.VM_RUN_SHARDED.launches > 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches > 0
@@ -1470,7 +1629,8 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
         assert kernels.VM_RUN_SHARDED.launches == len(engine.shards.distinct)
         assert kernels.VM_RUN.launches == 0
         assert kernels.MUTATION_COUNTS_SHARDED.launches == 1
-        assert kernels.POPCOUNT_WORDS.launches == len(engine.shards.distinct)
+        # the count comes from the VM launch
+        assert kernels.POPCOUNT_WORDS.launches == 0
     results = {}
     for start in starts:
         words, count, muts = step(code, banks, dyns, fulls, start)
@@ -1496,8 +1656,9 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
     log("8c step", f"ShardedQueryStep over {len(banks)} shards "
         f"{tuple(banks[0].shape)}, a {code.shape[1]}-instruction program, "
         f"segment starts {starts} (the second clamped to {n_rows - 64}): "
-        f"words, count {int(count)} and 64 segment counts equal the plain "
-        f"versions on the card and a popcount on the host; {ms:.4f} ms per "
+        f"words, count {int(count)} (from the VM launch, no K11) and 64 "
+        f"segment counts equal the plain versions on the card and a popcount "
+        f"on the host; {ms:.4f} ms per "
         f"call on the card, {wall:.4f} ms wall; {nvidia_smi()}")
     n_cards = torch.cuda.device_count()
     devices = [torch.device(DEVICE, d % n_cards) for d in range(N_SHARDS)]
@@ -1632,8 +1793,9 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     the snapshot, keeps its shards of the port engine's bank and runs
     ShardedQueryStep on phase 8c's query at 8c's segment starts (`want`:
     its words' hashes, count and segment counts per start), which its
-    words, the all-reduced count and segment counts must equal; the VM,
-    K11 and K2 launched in every rank, no plain version, no JAX module. Then
+    words, the all-reduced count and segment counts must equal; the VM
+    (which yields the count) and K2 launched in every rank, no K11, no
+    plain version, no JAX module. Then
     the NCCL route on every machine: the worker, one rank with N_SHARDS
     shards on the first card, against the numpy oracle. Returns the
     ranks' times, memory and backends."""
@@ -1675,9 +1837,10 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
             assert (got["count"], got["mutation_counts"]) == (
                 ref["count"], ref["mutation_counts"]), (rank, start)
         assert vm_launched(report["launches"]), (rank, report["launches"])
-        for name in ("mutation_counts", "mutation_counts_sharded",
-                     "popcount_words"):
+        for name in ("mutation_counts", "mutation_counts_sharded"):
             assert report["launches"][name] > 0, (rank, name)
+        # the step's count comes from the VM launch
+        assert report["launches"]["popcount_words"] == 0, rank
         assert not any(report["plain"].values()), (rank, report["plain"])
         assert report["banned"] == [], (rank, report["banned"])
         assert report["backend"] == backend, report["backend"]
@@ -1691,8 +1854,8 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
         f"PW {reports[0]['n_words']} words: each rank's words, the count and "
         f"the 64 segment counts at segment starts {starts} equal phase 8c's "
         f"one-process step; the VM (K6 with 2 shards a card, K1 with 1), "
-        f"K11 and K2 launched in every rank, no plain version, no JAX "
-        f"module; "
+        f"which yields the count, and K2 launched in every rank, no K11, no "
+        f"plain version, no JAX module; "
         f"snapshot saved in {out['save_s']:.1f} s, "
         f"ranks done in {out['ranks_s']:.1f} s; per rank: "
         + "; ".join(
@@ -1721,7 +1884,7 @@ def phase8d(main: MainPath, kernels, torch, db, query: str,
     assert worker["words"] == words.tolist() and worker["backend"] == "nccl"
     assert vm_launched(worker["launches"]) and worker["launches"][
         "mutation_counts"] > 0 and worker["launches"][
-        "popcount_words"] > 0, worker["launches"]
+        "popcount_words"] == 0, worker["launches"]
     assert not any(worker["plain"].values()), worker["plain"]
     main.add(worker["launches"], worker["plain"])
     log("8d worker", f"python -m lapis_silo_torch.parallel.distributed_worker "
@@ -2050,8 +2213,10 @@ def phase11(main: MainPath, kernels, torch, db, answers: dict,
                for label, (_p, report, _l) in procs.items()}
     for label, report in reports.items():
         assert vm_launched(report["launches"]), (label, report["launches"])
-        for name in ("mutation_counts", "group_counts", "popcount_words"):
+        for name in ("mutation_counts", "group_counts"):
             assert report["launches"][name] > 0, (label, name)
+        for name in ("popcount_words", "compact_nonzero"):
+            assert report["launches"][name] == 0, (label, name)
         assert not any(report["plain"].values()), (label, report["plain"])
         assert report["banned"] == [], (label, report["banned"])
         main.add(report["launches"], report["plain"])
@@ -2183,8 +2348,10 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
     """`answers` over HTTP from make_server on port 0 with SILO_HTTP_IMPL
     `impl` (and, with `fast`, the counts again through the native fast
     path), with the launch counts set to 0 just before and read just after:
-    the VM, K2, K9, K10 (the served engine's COMPACT_MIN_WORDS is 0) and
-    K11 launched and no plain version ran. Returns the p50 ms
+    the VM, K2 and K9 launched, no K10 or K11 (the VM launch yields the
+    Mutations filter's total and, the served engine's COMPACT_MIN_WORDS
+    being 0, the Details filter's compact blocks), and no plain version
+    ran. Returns the p50 ms
     per action (and the fast path's under "fast")."""
     from lapis_silo_torch.server import native_http
     from lapis_silo_torch.server.http_server import make_server
@@ -2208,9 +2375,10 @@ def serve_once(main: MainPath, kernels, mutex, served, answers: dict,
             os.environ.pop("SILO_HTTP_IMPL", None)
         assert vm_launched({k.name: k.launches for k in kernels.KERNELS}), (
             f"the VM did not launch in {label}")
-        for k in (kernels.MUTATION_COUNTS, kernels.GROUP_COUNTS,
-                  kernels.POPCOUNT_WORDS, kernels.COMPACT_NONZERO):
+        for k in (kernels.MUTATION_COUNTS, kernels.GROUP_COUNTS):
             assert k.launches > 0, f"{k.name} did not launch in {label}"
+        for k in (kernels.POPCOUNT_WORDS, kernels.COMPACT_NONZERO):
+            assert k.launches == 0, f"{k.name} launched in {label}"
         assert not any(k.plain_launches for k in kernels.KERNELS), label
         log(f"{label} launches", f"{ {k.name: k.launches for k in kernels.KERNELS} } "
             f"({type(server).__name__})")
@@ -2537,6 +2705,7 @@ def main() -> int:
             f"the host oracle; {wide_s * 1e3:.2f} ms ({len(wide) / wide_s:.0f} "
             f"queries/s, lowering excluded)")
         run_mutations(db, muts, want_muts, "4c mutations")
+        run_count_calls(db, engine, muts, "4c counts")
         assert db._engine._use_device
     del db, engine
     gc.collect()  # the engine and its database reference each other
@@ -2571,6 +2740,8 @@ def main() -> int:
         run_groupby(big, *big_answers["group-by"], "5b group-by", big_engine)
         run_details(big, big_engine, *big_answers["Details"], "5b details")
         run_mutations(big, *big_answers["Mutations"], "5c mutations")
+        run_count_calls(big, big_engine, big_answers["Mutations"][0]
+                        + big_answers["Details"][0], "5c counts")
         assert big._engine._use_device
         assert kernels.GROUP_COUNTS.launches > 0
     del big_engine
@@ -2615,6 +2786,8 @@ def main() -> int:
         + json.dumps(sliced))
     assert all(n for name, n in main_path.launches.items()
                if name not in OFF_PATH), main_path.launches
+    assert not any(main_path.launches[name] for name in OFF_PATH), (
+        main_path.launches)
     assert not any(main_path.plain.values()), main_path.plain
     assert not loaded, loaded
 

@@ -1,6 +1,12 @@
 // K10 and K11: the compact extraction and the word popcount over every word
 // shard of one card, one launch each.
 //
+// The engine's routes take both from the VM launch that writes the filter
+// (csrc/vm_run.cu, csrc/vm_run_sharded.cu), which ranks its tiles with the
+// same device code (csrc/compact_tile.cuh); these launches serve words that
+// are already on the card (kernels.compact_nonzero_sharded,
+// kernels.popcount_words_sharded).
+//
 // K10 compact_nonzero: for each shard (its words [n], its word 0 being
 // global word `offset`) one int32 block [1 + 2 cap]:
 //   [0]                  the count of non-zero words, not capped;
@@ -15,7 +21,7 @@
 //
 // K11 popcount_words: the total population count of the card's shards'
 // words, into an int64. Replaces _popcount_words_jit
-// (lapis_silo_tpu/ops/reductions.py:18-20, XLA), no Pallas kernel; its
+// (lapis_silo_tpu/ops/reductions.py:19-20, XLA), no Pallas kernel; its
 // plain version is reductions.popcount_words.
 //
 // What bounds them on an H100: both read each word once, and K10 writes
@@ -32,12 +38,13 @@
 //   shard's first word, so a shard may start at any word (a view into a
 //   larger tensor); words of an edge quad outside the shard are masked to
 //   0. Such a quad never crosses a 16-byte boundary, hence never a page;
-// - K10 ranks a tile's non-zero words with one __ballot_sync per word of a
-//   quad (the lanes below count by __popc), and one warp scans the 32
-//   per-warp totals of the tile (8 warps x 4 quads). Tiles of a shard are
-//   ordered by a single-pass decoupled look-back: each tile publishes its
-//   total (flag A), then walks its predecessors 32 at a time with one warp
-//   until it meets an inclusive prefix (flag P), then publishes its own.
+// - K10 ranks a tile's non-zero words (csrc/compact_tile.cuh) with one
+//   __ballot_sync per word of a quad (the lanes below count by __popc), and
+//   one warp scans the 32 per-warp totals of the tile (8 warps x 4 quads).
+//   Tiles of a shard are ordered by a single-pass decoupled look-back: each
+//   tile publishes its total (flag A), then walks its predecessors 32 at a
+//   time with one warp until it meets an inclusive prefix (flag P), then
+//   publishes its own.
 //   A descriptor is one 64-bit word (flag, value), written and read whole.
 //   Tile ids come from an atomic ticket, not blockIdx: CTAs are not
 //   scheduled in order, and a look-back waiting on a tile whose CTA has
@@ -55,17 +62,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compact_tile.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using namespace lapis_compact;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQuads = 4;                        // quads a thread
 constexpr long long kTileQuads = kThreads * kQuads;  // 1,024 quads a tile
 #define COMPACT_MAX_SHARDS 32  // kernels.COMPACT_MAX_SHARDS
-// descriptor flags, in the high 32 bits; the low 32 hold the value
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
 
 struct Shard {
   long long words;   // address of the shard's words (4-byte aligned)
@@ -123,34 +130,6 @@ __device__ __forceinline__ void load_quad(const Tile& t, long long n,
   }
 }
 
-__device__ __forceinline__ void publish(unsigned long long* d,
-                                        unsigned long long flag,
-                                        unsigned value) {
-  atomicExch(d, flag | value);
-}
-
-__device__ __forceinline__ unsigned long long peek(
-    const unsigned long long* d) {
-  return *reinterpret_cast<const volatile unsigned long long*>(d);
-}
-
-// p[0, n) = v by every thread of the CTA: single words up to p's first
-// 16-byte boundary and after the last, 16-byte stores between (a block's
-// rows start at any word).
-__device__ __forceinline__ void fill_run(int32_t* p, long long n, int32_t v) {
-  const int tid = threadIdx.x;
-  const unsigned misaligned = (unsigned)((uintptr_t)p & 15u);
-  long long head = (long long)(((16u - misaligned) & 15u) >> 2);
-  if (head > n) head = n;
-  if (tid < head) p[tid] = v;
-  int4* const q = reinterpret_cast<int4*>(p + head);
-  const long long n4 = (n - head) >> 2;
-  const int4 v4 = make_int4(v, v, v, v);
-  for (long long i = tid; i < n4; i += kThreads) q[i] = v4;
-  const long long done = head + 4 * n4;
-  if (tid < n - done) p[done + tid] = v;
-}
-
 // scratch: [0] the ticket, [1 + t] tile t's descriptor, zero at the launch;
 // spare: `spare_len` entries the launch zeroes for the next one, or null.
 __global__ void __launch_bounds__(kThreads) compact_kernel(
@@ -158,108 +137,35 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
     unsigned long long* __restrict__ scratch,
     unsigned long long* __restrict__ spare, int spare_len) {
   __shared__ int s_tile;
-  __shared__ int s_warp[kQuads * kWarps];  // per-warp counts, then prefixes
-  __shared__ unsigned s_excl;              // the tile's prefix in its shard
-  __shared__ unsigned s_count;             // the shard's count (last tile)
+  __shared__ int s_group[kQuads * kWarps];  // group counts, then prefixes
+  __shared__ unsigned s_excl;               // the tile's prefix in its shard
+  __shared__ unsigned s_count;              // the shard's count (last tile)
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (spare != nullptr) {
-    for (int i = blockIdx.x * kThreads + tid; i < spare_len;
-         i += gridDim.x * kThreads) {
-      spare[i] = 0ull;
-    }
-  }
-  if (tid == 0) s_tile = (int)atomicAdd(scratch, 1ull);
-  __syncthreads();
-  const int tile = s_tile;
+  zero_spare(spare, spare_len);
+  const int tile = take_ticket(scratch, &s_tile);
   unsigned long long* const desc = scratch + 1;
   const Tile t = find_tile(table, tile);
   const Shard& sh = table.shard[t.s];
-  const unsigned below = (1u << lane) - 1u;  // lanes under this one
   uint32_t w[kQuads][4];
+  long long first[kQuads];  // the global index of each quad's first word
   int before[kQuads];  // non-zero words of the warp's lanes under this one
 #pragma unroll
   for (int k = 0; k < kQuads; ++k) {
-    load_quad(t, sh.n, t.local * kTileQuads + k * kThreads + tid, w[k]);
+    const long long q = t.local * kTileQuads + k * kThreads + tid;
+    load_quad(t, sh.n, q, w[k]);
+    first[k] = sh.offset + 4 * q - t.head;
   }
-#pragma unroll
-  for (int k = 0; k < kQuads; ++k) {
-    int total = 0;
-    int under = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned m = __ballot_sync(kFull, w[k][j] != 0u);
-      total += __popc(m);
-      under += __popc(m & below);
-    }
-    before[k] = under;
-    if (lane == 0) s_warp[k * kWarps + warp] = total;
-  }
+  // quad k of warp w is group k * kWarps + w: the 32 groups in word order
+  count_groups<kQuads, 4>(w, kWarps, 1, s_group, before);
   __syncthreads();
-  if (warp == 0) {
-    // the 32 warp totals in word order (quad k of warp w is entry
-    // k * kWarps + w), scanned
-    const int x = s_warp[lane];
-    int incl = x;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    s_warp[lane] = incl - x;
-    const unsigned total = (unsigned)__shfl_sync(kFull, incl, 31);
-    unsigned excl = 0u;
-    if (t.local == 0) {
-      if (lane == 0) publish(desc + tile, kPrefix, total);
-    } else {
-      if (lane == 0) publish(desc + tile, kAggregate, total);
-      // the look-back: lane i reads tile look - i; tiles before the
-      // shard's first count as a prefix of 0 (the first tile itself
-      // always publishes a prefix, so the walk stops there at the latest)
-      int look = tile - 1;
-      while (true) {
-        const int pred = look - lane;
-        const unsigned long long d =
-            pred >= sh.tile_lo ? peek(desc + pred) : kPrefix;
-        const unsigned long long flag = d & ~0xffffffffull;
-        const unsigned prefixes = __ballot_sync(kFull, flag == kPrefix);
-        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-        const unsigned window = stop == 31 ? kFull : (2u << stop) - 1u;
-        if (__ballot_sync(kFull, flag == 0ull) & window) continue;
-        excl += __reduce_add_sync(kFull, lane <= stop ? (unsigned)d : 0u);
-        if (prefixes) break;
-        look -= 32;
-      }
-      if (lane == 0) publish(desc + tile, kPrefix, excl + total);
-    }
-    if (lane == 0) {
-      s_excl = excl;
-      s_count = excl + total;
-    }
+  if ((tid >> 5) == 0) {
+    scan_and_look_back(kQuads * kWarps, s_group, desc, tile, sh.tile_lo,
+                       &s_excl, &s_count);
   }
   __syncthreads();
   int32_t* const out = reinterpret_cast<int32_t*>(sh.out);
-  const unsigned excl = s_excl;
-  if (excl < (unsigned)cap) {
-#pragma unroll
-    for (int k = 0; k < kQuads; ++k) {
-      unsigned rank = excl + (unsigned)s_warp[k * kWarps + warp] +
-                      (unsigned)before[k];
-      const long long first =
-          4 * (t.local * kTileQuads + k * kThreads + tid) - t.head;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (w[k][j] != 0u) {
-          if (rank < (unsigned)cap) {
-            out[1 + rank] = (int32_t)(sh.offset + first + j);
-            out[1 + cap + rank] = (int32_t)w[k][j];
-          }
-          ++rank;
-        }
-      }
-    }
-  }
+  write_ranks<kQuads, 4>(w, first, before, s_group, kWarps, 1, s_excl, cap,
+                         out);
   if (t.local != sh.n_tiles - 1) return;
   const unsigned count = s_count;
   if (tid == 0) out[0] = (int32_t)count;

@@ -47,12 +47,36 @@
 //     one copy, and a warp finds its shard from its word block. A word block
 //     at a shard's ragged edge loads nothing past that shard's width.
 // Two forms, as K1: wide (8 words a lane) when the card's word blocks times
-// its segments fill the card, narrow (1) otherwise; the host chooses it.
+// its segments fill the card and for a compaction, narrow (1) otherwise;
+// the host chooses it.
+//
+// The filter's epilogue (kTail; a single program, one range), as K1's
+// (csrc/vm_run.cu): the total popcount of the card's shards' reg[0] words,
+// one 64-bit atomicAdd a CTA, and with a cap each shard's compact block
+// (csrc/compact_tile.cuh), in place of the launches of K11 and K10 that
+// ran after the VM. A CTA's 4 word blocks then lie in one shard: each
+// shard's blocks are rounded up to whole CTAs (tiles), numbered shard after
+// shard (kernels.tail_layout); with a cap a CTA's number comes from an
+// atomic ticket, each tile ranks its words and finds its prefix among its
+// shard's tiles by the look-back, and each shard has fill CTAs of its own
+// (numbered shard after shard, their tickets after every tile's), so the
+// shards' fills run side by side. The counts, the total, the ticket and
+// the descriptors arrive zeroed in one buffer that the launch before on
+// the same stream zeroed. A batch runs without it (kTail off).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compact_tile.cuh"
+
 namespace {
+
+using lapis_compact::count_groups;
+using lapis_compact::fill_shard;
+using lapis_compact::scan_and_look_back;
+using lapis_compact::take_ticket;
+using lapis_compact::write_ranks;
+using lapis_compact::zero_spare;
 
 constexpr int kWarps = 4;         // word blocks (warps) per CTA
 constexpr int kPrefetch = 2;      // instructions whose row words load ahead
@@ -81,6 +105,56 @@ struct Shard {
   int64_t unused;
 };
 static_assert(sizeof(Shard) == 80, "kernels.SHARD_FIELDS int64 per shard");
+
+// one shard's epilogue, as kernels.tail_table packs it (six int64 fields):
+// its compact block [1 + 2 cap] (0 without a cap), the global index of its
+// word 0, its first tile and its tiles, its first fill CTA and its fill
+// CTAs (0 without a cap)
+struct TailShard {
+  int64_t out;
+  int64_t offset;
+  int64_t tile_lo;
+  int64_t n_tiles;
+  int64_t fill_lo;
+  int64_t n_fill;
+};
+static_assert(sizeof(TailShard) == 48, "kernels.TAIL_FIELDS int64 per shard");
+
+// The epilogue of a single-program launch (kTail). `buf` arrives zeroed:
+// [0] the total popcount of the words, [1] the ticket, [2 + t] tile t's
+// descriptor; `spare` (spare_len entries, or null) is the next launch's
+// buf, zeroed here. With cap >= 0 the launch compacts: n_tiles CTAs run
+// the VM, n_fill more fill.
+struct Tail {
+  unsigned long long* buf;
+  unsigned long long* spare;
+  long long spare_len;
+  const TailShard* shards;
+  int cap;
+  int n_tiles;
+  int n_fill;
+};
+
+// The CTA's tile: blockIdx.x, or with a cap its ticket; a CTA whose ticket
+// is past the tiles fills its part of its shard and gets -1.
+__device__ __forceinline__ int tail_begin(const Tail& tail,
+                                          const Shard* shards, int n_shards) {
+  __shared__ int s_ticket;
+  __shared__ unsigned s_count;
+  __shared__ int32_t s_word0;
+  zero_spare(tail.spare, tail.spare_len);
+  if (tail.cap < 0) return blockIdx.x;
+  const int tile = take_ticket(tail.buf + 1, &s_ticket);
+  if (tile < tail.n_tiles) return tile;
+  const int fill = tile - tail.n_tiles;
+  int s = 0;
+  while (s + 1 < n_shards && tail.shards[s + 1].fill_lo <= fill) ++s;
+  const TailShard ts = tail.shards[s];
+  fill_shard(tail.buf + 2, (int)ts.tile_lo, (int)ts.n_tiles, shards[s].words,
+             shards[s].pw, (int32_t*)ts.out, ts.offset, tail.cap,
+             fill - (int)ts.fill_lo, (int)ts.n_fill, &s_count, &s_word0);
+  return -1;
+}
 
 // wire layout (vm.pack_wire)
 __device__ __forceinline__ int wire_mode(int32_t s) { return (s >> 18) & 0xF; }
@@ -233,7 +307,66 @@ __device__ __forceinline__ void exec_chunk(
   }
 }
 
+// After the VM, by every thread of tile `tile` (of the shard whose tail is
+// `ts`): the lane's reg[0] words (`last`, those not live or with
+// zero_words as 0; the lane's run j is the shard's words w0 + 32 V j, V of
+// them) into the total and, with a cap, ranked and written. Run j of the
+// lane is group warp * (L / V) + j of the tile.
 template <int L, int V>
+__device__ __forceinline__ void tail_end(const Tail& tail,
+                                         const TailShard& ts,
+                                         const Vec<L>& last,
+                                         const bool (&live)[L / V], int w0,
+                                         int zero_words, int tile) {
+  constexpr int kRuns = L / V;
+  __shared__ unsigned s_pop[kWarps];
+  __shared__ int s_group[kWarps * kRuns];
+  __shared__ unsigned s_excl, s_incl;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint32_t w[kRuns][V];
+  long long first[kRuns];
+  int before[kRuns];
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < kRuns; ++j) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      w[j][i] = live[j] && !zero_words ? last.w[V * j + i] : 0u;
+      bits += __popc(w[j][i]);
+    }
+    first[j] = ts.offset + w0 + 32 * V * j;
+  }
+  bits = __reduce_add_sync(0xffffffffu, bits);
+  if (lane == 0) s_pop[warp] = bits;
+  const bool compact = tail.cap >= 0;
+  if (compact) {
+    // the fill CTAs read word 0 once the shard's first tile's prefix is out
+    if (tile == ts.tile_lo) __threadfence();
+    count_groups<kRuns, V>(w, 1, kRuns, s_group, before);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) sum += s_pop[i];
+    if (sum) atomicAdd(tail.buf, (unsigned long long)sum);
+  }
+  if (!compact) return;
+  if (warp == 0) {
+    scan_and_look_back(kWarps * kRuns, s_group, tail.buf + 2, tile,
+                       (int)ts.tile_lo, &s_excl, &s_incl);
+  }
+  __syncthreads();
+  int32_t* const out = (int32_t*)ts.out;
+  write_ranks<kRuns, V>(w, first, before, s_group, 1, kRuns, s_excl,
+                        tail.cap, out);
+  if (tile == ts.tile_lo + ts.n_tiles - 1 && threadIdx.x == 0) {
+    out[0] = (int32_t)s_incl;
+  }
+}
+
+template <int L, int V, bool kTail>
 __global__ void __launch_bounds__(32 * kWarps) vm_run_sharded_kernel(
     const Shard* __restrict__ shards, int n_shards,
     const int32_t* __restrict__ code, int n_instr,
@@ -241,7 +374,7 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_sharded_kernel(
     const int32_t* __restrict__ slot_off,
     const int32_t* __restrict__ range_slots, int n_wgroups,
     int64_t n_wblocks, int acc_words, int n_regs, int zero_words,
-    int32_t* __restrict__ counts) {
+    int32_t* __restrict__ counts, const Tail tail) {
   constexpr int kBlockW = 32 * L;  // words per warp
   // the code tile apart from the registers, so its reads are known not to
   // alias their writes
@@ -254,18 +387,31 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_sharded_kernel(
   uint32_t* regs = (uint32_t*)(acc + acc_words) +
                    (size_t)warp * (n_regs + 1) * kBlockW +
                    lane * (L % 4 ? 1 : 4);
-  const int range = blockIdx.x / n_wgroups;
-  // word blocks vary fastest: neighbouring CTAs share the range's code
-  const int64_t g = (int64_t)(blockIdx.x % n_wgroups) * kWarps + warp;
-  const bool active = g < n_wblocks;  // no early return: barriers follow
-
+  int tile = blockIdx.x;
+  if constexpr (kTail) {
+    tile = tail_begin(tail, shards, n_shards);
+    if (tile < 0) return;  // a fill CTA, done
+  }
+  const int range = kTail ? 0 : blockIdx.x / n_wgroups;
   // the warp's shard and its word block there (uniform across the warp)
   int s = 0;
-  int64_t wblock = g;
-  for (; s < n_shards - 1; ++s) {
-    const int64_t nb = (shards[s].pw + kBlockW - 1) / kBlockW;
-    if (wblock < nb) break;
-    wblock -= nb;
+  int64_t wblock;
+  bool active;  // no early return: barriers follow
+  if constexpr (kTail) {
+    // the tile's shard, and the tile's 4 word blocks in it
+    while (s + 1 < n_shards && tail.shards[s + 1].tile_lo <= tile) ++s;
+    wblock = (tile - tail.shards[s].tile_lo) * kWarps + warp;
+    active = wblock < (shards[s].pw + kBlockW - 1) / kBlockW;
+  } else {
+    // word blocks vary fastest: neighbouring CTAs share the range's code
+    const int64_t g = (int64_t)(blockIdx.x % n_wgroups) * kWarps + warp;
+    active = g < n_wblocks;
+    wblock = g;
+    for (; s < n_shards - 1; ++s) {
+      const int64_t nb = (shards[s].pw + kBlockW - 1) / kBlockW;
+      if (wblock < nb) break;
+      wblock -= nb;
+    }
   }
   const Shard sh = shards[s];
   // row counts fit int32 and rows 4 GB (kernels.shard_table checks)
@@ -326,7 +472,7 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_sharded_kernel(
     if (acc[i]) atomicAdd(counts + slots[i], acc[i]);
   }
   // reg[0] of the program's last segment, which the last range ran
-  if (range == gridDim.x / n_wgroups - 1) {
+  if (kTail || range == gridDim.x / n_wgroups - 1) {
     const Vec<L> last = load_vec<L>(regs);
 #pragma unroll
     for (int j = 0; j < L / V; ++j) {
@@ -337,33 +483,43 @@ __global__ void __launch_bounds__(32 * kWarps) vm_run_sharded_kernel(
       }
     }
   }
+  if constexpr (kTail) {
+    tail_end<L, V>(tail, tail.shards[s], load_vec<L>(regs), live, w0,
+                   zero_words, tile);
+  }
 }
 
-template <int L, int V>
+template <int L, int V, bool kTail>
 int launch(const void* shards, int n_shards, const void* code, int n_instr,
            const void* range_lo, const void* slot_off, const void* range_slots,
            int n_ranges, long long n_wblocks, int max_slots, int n_regs,
-           int zero_words, void* counts, cudaStream_t stream) {
+           int zero_words, void* counts, const Tail& tail,
+           cudaStream_t stream) {
   const long long n_wgroups = (n_wblocks + kWarps - 1) / kWarps;
   if (n_wgroups * n_ranges > 0x7FFFFFFFLL) {
     return (int)cudaErrorInvalidConfiguration;
   }
+  // with the epilogue: its tiles, and the fill CTAs of a compaction
+  const long long n_ctas =
+      kTail ? tail.n_tiles + (tail.cap >= 0 ? tail.n_fill : 0)
+            : n_wgroups * n_ranges;
   // a multiple of 4, so the registers after it stay 16-byte aligned
   const int acc_words = (max_slots + 3) / 4 * 4;
   const size_t smem = sizeof(int32_t) * (size_t)acc_words +
                       sizeof(uint32_t) * kWarps * (size_t)(n_regs + 1) * 32 * L;
-  if (smem > 40 * 1024) {  // 48 KB with the static code tile
+  // 48 KB with the static code tile (and the epilogue's shared words)
+  if (smem > 40 * 1024 - (kTail ? 1024 : 0)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        vm_run_sharded_kernel<L, V>,
+        vm_run_sharded_kernel<L, V, kTail>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  vm_run_sharded_kernel<L, V><<<(unsigned)(n_wgroups * n_ranges),
-                                32 * kWarps, smem, stream>>>(
-      (const Shard*)shards, n_shards, (const int32_t*)code, n_instr,
-      (const int32_t*)range_lo, (const int32_t*)slot_off,
-      (const int32_t*)range_slots, (int)n_wgroups, n_wblocks, acc_words,
-      n_regs, zero_words, (int32_t*)counts);
+  vm_run_sharded_kernel<L, V, kTail>
+      <<<(unsigned)n_ctas, 32 * kWarps, smem, stream>>>(
+          (const Shard*)shards, n_shards, (const int32_t*)code, n_instr,
+          (const int32_t*)range_lo, (const int32_t*)slot_off,
+          (const int32_t*)range_slots, (int)n_wgroups, n_wblocks, acc_words,
+          n_regs, zero_words, (int32_t*)counts, tail);
   return (int)cudaGetLastError();
 }
 
@@ -380,29 +536,52 @@ int launch(const void* shards, int n_shards, const void* code, int n_instr,
 //   slot_off     int32 [n_ranges + 1] and range_slots: range r's counted
 //                slots are range_slots[slot_off[r], slot_off[r + 1]), at
 //                most max_slots of them;
-//   counts       int32 [4096], zeroed by the caller; the card's shards' EMIT
-//                totals are added into it.
+//   counts       int32 [4096], zeroed; the card's shards' EMIT totals are
+//                added into it.
 // lane_words is 8 (wide) or 1 (narrow), vec 1 for 16-byte loads (wide only:
 // every shard's rows, masks and outputs 16-byte aligned, widths multiples
 // of 4), n_wblocks the card's word blocks of 32 x lane_words words summed
 // over its shards, zero_words 1 where reg[0] comes out 0 (no instruction,
-// or an empty last segment). Returns cudaGetLastError() after the launch.
-extern "C" int lapis_vm_run_sharded(const void* shards, int n_shards,
-                                    const void* code, int n_instr,
-                                    const void* range_lo,
-                                    const void* slot_off,
-                                    const void* range_slots, int n_ranges,
-                                    int lane_words, int vec,
-                                    long long n_wblocks, int max_slots,
-                                    int n_regs, int zero_words, void* counts,
-                                    void* stream) {
+// or an empty last segment).
+// A batch passes no `tails` and no `tail`. With them the launch runs one
+// program (one range) with the filter's epilogue: `tails` is TailShard
+// [n_shards] (kernels.tail_table: each shard's block, offset, first tile,
+// tiles, first fill CTA and fill CTAs; each shard's word blocks rounded up
+// to whole tiles of 4, so n_wblocks is 4 x the tiles, numbered from 0;
+// with a cap the fill CTAs numbered from 0, at least one a shard); `tail`
+// is uint64 [tail_len], zero: [0] the total popcount of the card's words,
+// [1] the ticket, [2 + t] tile t's descriptor; `spare` (uint64
+// [spare_len], or null) is zeroed for the next launch. With cap >= 0 every
+// shard's block is written. Returns cudaGetLastError() after the launch.
+extern "C" int lapis_vm_run_sharded(
+    const void* shards, const void* tails, int n_shards, const void* code,
+    int n_instr, const void* range_lo, const void* slot_off,
+    const void* range_slots, int n_ranges, int lane_words, int vec,
+    long long n_wblocks, int max_slots, int n_regs, int zero_words,
+    void* counts, void* tail, long long tail_len, void* spare,
+    long long spare_len, int cap, int n_fill, void* stream) {
   if (n_wblocks <= 0 || n_ranges <= 0) return (int)cudaGetLastError();
-  if (!(lane_words == 8 || (lane_words == 1 && !vec))) {
+  const long long n_tiles = n_wblocks / kWarps;
+  if (!(lane_words == 8 || (lane_words == 1 && !vec)) ||
+      (tails == nullptr) != (tail == nullptr) ||
+      (tail != nullptr &&
+       (n_ranges != 1 || n_wblocks % kWarps || n_tiles > 0x7FFFFFFFLL ||
+        tail_len < 2 + (cap >= 0 ? n_tiles : 0) ||
+        (cap >= 0 && n_fill < 1)))) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto run = lane_words == 1 ? launch<1, 1>
-                   : vec ? launch<8, 4> : launch<8, 1>;
+  const Tail epilogue{(unsigned long long*)tail, (unsigned long long*)spare,
+                      spare == nullptr ? 0 : spare_len,
+                      (const TailShard*)tails, cap, (int)n_tiles, n_fill};
+  const auto run =
+      tail == nullptr
+          ? (lane_words == 1 ? launch<1, 1, false>
+             : vec           ? launch<8, 4, false>
+                             : launch<8, 1, false>)
+          : (lane_words == 1 ? launch<1, 1, true>
+             : vec           ? launch<8, 4, true>
+                             : launch<8, 1, true>);
   return run(shards, n_shards, code, n_instr, range_lo, slot_off,
              range_slots, n_ranges, n_wblocks, max_slots, n_regs, zero_words,
-             counts, (cudaStream_t)stream);
+             counts, epilogue, (cudaStream_t)stream);
 }

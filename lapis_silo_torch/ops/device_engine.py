@@ -23,7 +23,10 @@ watcher and the fast path):
   batch of count queries concatenates into one program with one EMIT_COUNT
   per query and runs as ONE launch of the VM kernel, each self-contained
   query in a segment of its own that the kernel runs beside the others
-  (``batch_args``). B_SPARSE operands name
+  (``batch_args``). A single filter whose total or compact blocks a route
+  needs (``count_async``, ``device_filter``, ``evaluate_compact``) gets
+  them from the same launch (``kernels.vm_filter_sharded``). B_SPARSE
+  operands name
   sparse leaves: before the VM launch, missed leaves are densified into rows
   of the hot-leaf pool ``[C + 1, PW]`` (an SLRU cache of leaf rows) and the
   VM reads the pool; without the pool, or on the cold-sweep bypass, the
@@ -366,20 +369,20 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
     return state
 
 
-def compact_to_host(words: list[torch.Tensor], offsets: list[int], cap: int,
-                    n_flat_words: int) -> np.ndarray | None:
-    """Host flat words [n_flat_words] from word shards (shard d's first word
-    is global word offsets[d]) through their non-zero (index, word) pairs:
-    kernels.compact_nonzero_sharded (K10 once per card, queued behind the
-    work that wrote the words), then each card's blocks in one copy into
-    one pinned host block, kept for the next call (a copy into pageable
-    memory would wait for the stream's queued work as a whole), and the
-    host's rebuild. None when more than `cap` words are non-zero."""
-    stacks = kernels.compact_nonzero_sharded(words, offsets, cap)
+def blocks_to_host(stacks: list[torch.Tensor], cap: int,
+                   n_flat_words: int) -> np.ndarray | None:
+    """Host flat words [n_flat_words] from the shards' compact blocks (one
+    int32 tensor [k, 1 + 2 cap] per card, as compact_nonzero_sharded and
+    kernels.vm_filter_sharded give them): each card's blocks in one copy
+    into one pinned host block, kept for the next call (a copy into
+    pageable memory would wait for the stream's queued work as a whole),
+    and the host's rebuild. None when more than `cap` words are
+    non-zero."""
     if stacks[0].device.type != "cuda":
         return rebuild_from_blocks(torch.cat(stacks).numpy(), cap,
                                    n_flat_words)
-    staged = _take_pinned((len(words), 1 + 2 * cap))
+    staged = _take_pinned((sum(stack.shape[0] for stack in stacks),
+                           1 + 2 * cap))
     try:
         row = 0
         for stack in stacks:
@@ -392,7 +395,7 @@ def compact_to_host(words: list[torch.Tensor], offsets: list[int], cap: int,
         _give_pinned(staged)
 
 
-# compact_to_host's pinned host blocks, free ones by shape: a call takes one
+# blocks_to_host's pinned host blocks, free ones by shape: a call takes one
 # that no other call holds (a server answers from many threads), and pins
 # no memory once the pool holds as many as calls run at once
 _pinned_free: dict = {}
@@ -414,7 +417,7 @@ def _give_pinned(block: torch.Tensor) -> None:
 
 def rebuild_from_blocks(packed: np.ndarray, cap: int,
                         n_flat_words: int) -> np.ndarray | None:
-    """The host's half of compact_to_host: flat uint32 words
+    """The host's half of blocks_to_host: flat uint32 words
     [n_flat_words] from the shards' blocks (int32 [D, 1 + 2 cap]), or None
     when their counts pass `cap`."""
     counts = packed[:, 0].astype(np.int64)
@@ -953,21 +956,30 @@ class DeviceEngine:
                 args.n_regs, args.seg_starts)
 
     def _vm(self, args: VmArgs, sparse_rows: list | None = None,
-            ) -> tuple[list, torch.Tensor]:
+            tail: bool = False, cap: int | None = None):
         """One VM launch per shard: (reg[0] words per shard, counts [4096]
-        on the primary device)."""
-        return kernels.vm_run_sharded(*self.kernel_inputs(args, sparse_rows))
+        on the primary device). With `tail` (one program), the launch with
+        the filter's epilogue (kernels.vm_filter_sharded): a
+        kernels.VmFilter that also holds the words' total and, with `cap`,
+        each shard's compact block."""
+        inputs = self.kernel_inputs(args, sparse_rows)
+        if not tail:
+            return kernels.vm_run_sharded(*inputs)
+        if args.seg_starts is not None:
+            raise ValueError("the filter's epilogue takes one program")
+        return kernels.vm_filter_sharded(*inputs[:-1],
+                                         offsets=self.shards.offsets, cap=cap)
 
-    def _run(self, args: VmArgs,
-             use_pool: bool = True) -> tuple[list, torch.Tensor]:
+    def _run(self, args: VmArgs, use_pool: bool = True, tail: bool = False,
+             cap: int | None = None):
         """One VM launch on the engine's streams. With sparse leaves, the VM
         reads the hot-leaf pool (misses densified into their slots first,
         all under _pool_lock) or, without the pool or with `use_pool` off,
         a [K, PW] block densified for this launch. Returns (reg[0] words per
-        shard, counts)."""
+        shard, counts), or with `tail` a kernels.VmFilter (see _vm)."""
         with self._on_stream():
             if not args.sparse_leaves:
-                return self._vm(args)
+                return self._vm(args, tail=tail, cap=cap)
             if self.pool_slots and use_pool:
                 with self._pool_lock:
                     slot_map, chunks = self._plan_residency(args.sparse_leaves)
@@ -976,24 +988,42 @@ class DeviceEngine:
                     try:
                         self._eager_update_chunks(chunks)
                         return self._vm(args._replace(code=code),
-                                        self.leaf_pool)
+                                        self.leaf_pool, tail, cap)
                     except Exception:
                         self._drop_pool()
                         raise
-            return self._vm(args, self._densified(args.sparse_leaves))
+            return self._vm(args, self._densified(args.sparse_leaves), tail,
+                            cap)
 
     # -- filters ----------------------------------------------------------------
 
-    def _trivial_words(self, program: _Program) -> list | None:
-        """The words of a single full/empty load, which needs no launch."""
+    @staticmethod
+    def _trivial(program: _Program) -> int | None:
+        """B_FULL or B_ZERO for a single full/empty load, which needs no
+        launch, else None."""
         if len(program.opcodes) == 1 and program.opcodes[0] == ALU:
             spec = program.regspec[0]
-            if (spec >> 24) & 0xF == M_MOVB:
-                if (spec >> 28) & 0xF == B_FULL:
-                    return self.fulls
-                if (spec >> 28) & 0xF == B_ZERO:
-                    return [zero[0] for zero in self._dyn_tensor([], 1)]
+            bsrc = (spec >> 28) & 0xF
+            if (spec >> 24) & 0xF == M_MOVB and bsrc in (B_FULL, B_ZERO):
+                return bsrc
         return None
+
+    def _trivial_words(self, program: _Program) -> list | None:
+        """The words of a single full/empty load."""
+        kind = self._trivial(program)
+        if kind is None:
+            return None
+        if kind == B_FULL:
+            return self.fulls
+        return [zero[0] for zero in self._dyn_tensor([], 1)]
+
+    def _trivial_total(self, program: _Program) -> int | None:
+        """The total of a single full/empty load, known on the host: every
+        sequence, or none."""
+        kind = self._trivial(program)
+        if kind is None:
+            return None
+        return sum(self.part_rows) if kind == B_FULL else 0
 
     def evaluate_device(self, filter_expr) -> list[torch.Tensor]:
         """The FLAT global-word filter bitset on the devices (partition p's
@@ -1019,29 +1049,26 @@ class DeviceEngine:
             self._gather_host(self.evaluate_device(filter_expr)))
 
     # from this many flat words on, evaluate_compact copies the non-zero
-    # words instead of the bitset: the smallest size swept at which the
-    # extraction (K10, one copy into pinned memory, the host's rebuild) was
-    # faster per call than the bitset copy at both 400 and 16,384 non-zero
-    # words in every run, on an NVIDIA H100 80GB HBM3 at 700.00 W
-    # (chip_smoke.py's compaction sweep and scripts/torch_compact_ab.py,
-    # five runs). At 312,512 words: 0.0987-0.2387 and 0.1643-0.3135 ms
-    # against 0.2351-0.5402 and 0.2234-0.4389. At the reference's 131,072
-    # (device_engine.py:784) it won at 400 in all five but at 16,384 in
-    # two and lost in three (0.1112-0.2948 against 0.1553-0.2614): the
-    # host's rebuild and the block's launch and copy cost about what the
-    # 512 KB copy does. The cap is the reference's (device_engine.py:785).
-    COMPACT_MIN_WORDS = 312512
+    # words instead of the bitset: the reference's (device_engine.py:784),
+    # and the smallest size swept at which the VM launch with its compact
+    # blocks, one copy into pinned memory and the host's rebuild was faster
+    # per call than the VM and the bitset copy at both 400 and 16,384
+    # non-zero words in every run, on an NVIDIA H100 80GB HBM3 at 700.00 W
+    # (scripts/torch_fused_ab.py, five runs): at 131,072 words
+    # 0.2751-0.4289 and 0.3042-0.4723 ms against 0.4371-1.0205 and
+    # 0.3839-0.5879. The cap is the reference's (device_engine.py:785).
+    COMPACT_MIN_WORDS = 131072
     COMPACT_CAP_WORDS = 16384
 
     def evaluate_compact(self, filter_expr) -> list[np.ndarray]:
         """evaluate() for row-materializing actions at scale (Details, Fasta,
-        Insertions; the reference's device_engine.py:782-822): after the VM
-        launch, in the same queued work, each shard extracts its count of
-        non-zero words and the first COMPACT_CAP_WORDS of their (global
-        index, word) pairs (K10, kernels.compact_nonzero_sharded), one copy
-        per card brings the counts and pairs to the host, which rebuilds
-        the bitsets (compact_to_host). When
-        the pairs overflow the cap, the words the VM already wrote are
+        Insertions; the reference's device_engine.py:782-822): the VM launch
+        that writes the filter also writes each shard's count of non-zero
+        words and the first COMPACT_CAP_WORDS of their (global index, word)
+        pairs (kernels.vm_filter_sharded, one launch per card, as the
+        reference's dispatch does), one copy per card brings the counts and
+        pairs to the host, which rebuilds the bitsets (blocks_to_host).
+        When the pairs overflow the cap, the words the VM already wrote are
         copied instead (no second pass). Trivial FULL/ZERO filters and
         corpora under COMPACT_MIN_WORDS flat words copy the bitset."""
         if self.n_flat_words < self.COMPACT_MIN_WORDS:
@@ -1050,21 +1077,26 @@ class DeviceEngine:
         trivial = self._trivial_words(program)
         if trivial is not None:
             return self._per_partition(self._gather_host(trivial))
-        words, _counts = self._run(self._prepare_program(program))
-        return self._per_partition(self._compact_to_host(words))
-
-    def _compact_to_host(self, words: list[torch.Tensor]) -> np.ndarray:
-        """Host flat words [PW] from the shards' words, through their
-        non-zero (index, word) pairs while they fit the cap."""
+        out = self._run(self._prepare_program(program), tail=True,
+                        cap=self.COMPACT_CAP_WORDS)
         with self._on_stream():
-            host = compact_to_host(words, self.shards.offsets,
-                                   self.COMPACT_CAP_WORDS, self.n_flat_words)
-        return self._gather_host(words) if host is None else host
+            host = blocks_to_host(out.blocks, self.COMPACT_CAP_WORDS,
+                                  self.n_flat_words)
+        if host is None:
+            host = self._gather_host(out.words)
+        return self._per_partition(host)
 
     def device_filter(self, filter_expr) -> "DeviceFilter":
-        """Evaluate the filter and KEEP it on the device: Mutations needs
-        only device reductions."""
-        return DeviceFilter(self, self.evaluate_device(filter_expr))
+        """Evaluate the filter and KEEP it on the device, with its total
+        from the same VM launch (known on the host for a trivial filter):
+        Mutations needs only device reductions."""
+        program, _regs = self.lower(filter_expr)
+        trivial = self._trivial_words(program)
+        if trivial is not None:
+            return DeviceFilter(self, trivial,
+                                self._trivial_total(program))
+        out = self._run(self._prepare_program(program), tail=True)
+        return DeviceFilter(self, out.words, out.total)
 
     # -- group-by (Aggregated with groupByFields) -------------------------
 
@@ -1186,13 +1218,16 @@ class DeviceEngine:
     # -- counts -------------------------------------------------------------------
 
     def count_async(self, filter_expr, program: _Program | None = None) -> torch.Tensor:
-        """Filter + popcount on the device without blocking: a 0-d tensor
-        on the primary device."""
+        """Filter + popcount on the device without blocking: a 0-d int64
+        tensor on the primary device, the total of the VM launch that
+        writes the filter (a trivial filter's, known on the host, needs no
+        launch)."""
         if program is None:
             program = self.lower(filter_expr)[0]
-        words, _counts = self._run(self._prepare_program(program))
-        with self._on_stream():
-            return kernels.popcount_words_sharded(words)
+        known = self._trivial_total(program)
+        if known is not None:
+            return torch.tensor(known, dtype=torch.int64, device=self.device)
+        return self._run(self._prepare_program(program), tail=True).total
 
     def count(self, filter_expr) -> int:
         """One count: host-answerable programs need no device work."""
@@ -1495,20 +1530,21 @@ class DeviceEngine:
 
 class DeviceFilter:
     """A filter result resident on the device: the FLAT global words as
-    [PW/D] parts, one per shard, and a lazy popcount summed over them.
+    [PW/D] parts, one per shard, and their total popcount, an int or a 0-d
+    tensor on the primary device (the VM launch's, read when first asked).
     Accepted by mutation_counts in place of host word lists."""
 
-    def __init__(self, engine: DeviceEngine, parts: list[torch.Tensor]):
+    def __init__(self, engine: DeviceEngine, parts: list[torch.Tensor],
+                 total: int | torch.Tensor):
         self.engine = engine
         self.parts = parts
-        self._popcount: int | None = None
+        self._total = total
 
     def popcount(self) -> int:
-        if self._popcount is None:
+        if not isinstance(self._total, int):
             with self.engine._on_stream():
-                self._popcount = int(
-                    kernels.popcount_words_sharded(self.parts))
-        return self._popcount
+                self._total = int(self._total)
+        return self._total
 
 
 class _MicroBatcher:

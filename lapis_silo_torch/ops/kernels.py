@@ -36,7 +36,7 @@ wrote as kernels of their own:
   the group-by reduction of a filter over per-sequence group codes (uint8,
   int16 or int32), counts per (partition, group), one launch per card over
   all of its word shards, replacing the XLA reduction ``_group_counts_jit``
-  (``lapis_silo_tpu/ops/reductions.py:23``), which is no Pallas kernel;
+  (``lapis_silo_tpu/ops/reductions.py:24``), which is no Pallas kernel;
 - ``compact_nonzero_sharded`` and ``compact_nonzero`` (``csrc/compact.cu``,
   K10): each word shard's count of non-zero words and the first `cap` of
   their (global index, word) pairs, one launch per card over all of its
@@ -45,7 +45,14 @@ wrote as kernels of their own:
 - ``popcount_words_sharded`` and ``popcount_words`` (``csrc/compact.cu``,
   K11): the total population count of the shards' words, one launch per
   card, the cards' totals added on the first shard's device, replacing
-  ``_popcount_words_jit`` (``lapis_silo_tpu/ops/reductions.py:18``).
+  ``_popcount_words_jit`` (``lapis_silo_tpu/ops/reductions.py:19``);
+- ``vm_filter_sharded`` (K1 or K6 with the filter's epilogue,
+  ``csrc/compact_tile.cuh``): one program's VM launch that also yields the
+  total popcount of its words and, with a cap, each shard's compact block,
+  as the reference's dispatch yields its ``count`` and ``compact:<cap>``
+  outputs (``lapis_silo_tpu/ops/vm.py:500-514``). The engine's routes take
+  a filter's total and blocks from it; K10 and K11 serve words already on
+  the card.
 
 At first use each source is compiled with its own ``nvcc`` (all started
 together) for ``sm_90a`` and the objects are linked into one shared library
@@ -61,6 +68,7 @@ CPU it runs the plain PyTorch version instead, which adds one to
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -149,9 +157,11 @@ _lib_lock = threading.Lock()
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "lapis_vm_run": [_P, _I32, _I32, _I32, _P, _I64, _P, _I64, _P, _I64, _P,
-                     _I64, _I32, _P, _P, _P],
-    "lapis_vm_run_sharded": [_P, _I32, _P, _I32, _P, _P, _P, _I32, _I32,
-                             _I32, _I64, _I32, _I32, _I32, _P, _P],
+                     _I64, _I32, _P, _P, _I32, _P, _I64, _P, _I64, _P, _I64,
+                     _I32, _I32, _P],
+    "lapis_vm_run_sharded": [_P, _P, _I32, _P, _I32, _P, _P, _P, _I32, _I32,
+                             _I32, _I64, _I32, _I32, _I32, _P, _P, _I64, _P,
+                             _I64, _I32, _I32, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
                             _P],
@@ -180,9 +190,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the kernels' shared library for the current sources lives."""
+    """Where the kernels' shared library for the current sources (and the
+    headers they include) lives."""
     digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for source in sorted(CSRC_DIR.glob("*.cu")):
+    for source in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(source.name.encode())
         digest.update(source.read_bytes())
     return BUILD_DIR / f"liblapis_kernels-{digest.hexdigest()[:16]}.so"
@@ -310,41 +321,61 @@ def vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
     Returns (reg[0] words of the last segment [PW], EMIT counts [4096]),
     both int32 on the inputs' device."""
     starts = _segment_starts(segments, n_instr)
-    return _vm_run(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
-                   starts, _list_cap(starts), {})
+    _check_vm(code, n_instr, bank, dyn, sparse_rows, full, n_regs)
+    if full.device.type == "cpu":
+        return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
+                            starts)
+    if full.device.type != "cuda":
+        raise ValueError(f"vm_run: no kernel for device {full.device}")
+    out = _vm_run(code, n_instr, bank, dyn, sparse_rows, full, n_regs, starts)
+    return out.words[0], out.counts
 
 
 def _vm_run(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
             dyn: torch.Tensor, sparse_rows: torch.Tensor, full: torch.Tensor,
-            n_regs: int, starts: np.ndarray, list_cap: int,
-            blocks: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """vm_run with checked segment starts and their _list_cap. `blocks`
-    maps a device to the program's code block there (int32
-    [2 n_instr + n_seg + 1]: operands, packed words, segment starts),
-    uploaded at the first launch on it."""
-    device = full.device
-    pw = _check_vm(code, n_instr, bank, dyn, sparse_rows, full, n_regs)
-    if device.type == "cpu":
-        return vm_run_plain(code, n_instr, bank, dyn, sparse_rows, full, n_regs,
-                            starts)
-    if device.type != "cuda":
-        raise ValueError(f"vm_run: no kernel for device {device}")
+            n_regs: int, starts: np.ndarray, tail: tuple | None = None):
+    """K1 over one shard on its card, with checked inputs and segment
+    starts; the program and its starts go to the card as one block. With
+    `tail` (offsets, cap: one program) the launch runs the filter's
+    epilogue, its buffer zeroed by the launch before (_tail_buffer): the
+    total and, with a cap, the shard's compact block. A VmFilter."""
     lib = load_library()
-    block = blocks.get(device)
-    if block is None:
-        block = blocks[device] = _code_block(code, n_instr, starts).to(
-            device, non_blocking=True)
+    device = full.device
+    pw = full.shape[0]
+    block = _code_block(code, n_instr, starts).to(device, non_blocking=True)
     words = torch.empty(pw, dtype=torch.int32, device=device)
-    counts = torch.zeros(MAX_BATCH_QUERIES, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    offsets, cap = tail if tail is not None else (None, None)
+    blocks = None
+    if cap is not None:
+        blocks = torch.empty((1, 1 + 2 * cap), dtype=torch.int32,
+                             device=device)
+    # the wide form once its grid gives every SM a CTA of 4 warps, and for
+    # a compaction (its tiles fewer and larger)
+    wide = (-(-pw // 128) * (starts.shape[0] - 1) >= 4 * _sm_count(device)
+            or cap is not None)
+    lane_words = 4 if wide else 1
+    offset = offsets[0] if offsets else 0
+    need = n_fill = None
+    if tail is not None:
+        _table, _n_tiles, need, n_fill = card_tail(
+            (pw,), lane_words, blocks, [offset], cap)
+    stream = torch.cuda.current_stream(device)
+    with torch.cuda.device(device), _tail_buffer(
+            device, stream, need) as (counts, total, epilogue):
+        if counts is None:
+            counts = torch.zeros(MAX_BATCH_QUERIES, dtype=torch.int32,
+                                 device=device)
         err = lib.lapis_vm_run(
-            block.data_ptr(), n_instr, starts.shape[0] - 1, list_cap, bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
+            block.data_ptr(), n_instr, starts.shape[0] - 1, _list_cap(starts),
+            bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
             sparse_rows.data_ptr(), sparse_rows.shape[0], full.data_ptr(), pw,
-            n_regs, words.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "vm_run")
+            n_regs, words.data_ptr(), counts.data_ptr(), lane_words,
+            *epilogue, None if blocks is None else blocks.data_ptr(), offset,
+            -1 if cap is None else cap, n_fill or 0, stream.cuda_stream)
+        _raise_on(err, "vm_run")
     VM_RUN.add()
-    return words, counts
+    return VmFilter([words], counts, total,
+                    None if blocks is None else [blocks])
 
 
 def _check_vm(code: torch.Tensor, n_instr: int, bank: torch.Tensor,
@@ -492,12 +523,12 @@ def vm_run_sharded(code: torch.Tensor, n_instr: int, banks: list,
     if devices[0].type != "cuda":
         raise ValueError(f"vm_run_sharded: no kernel for device {devices[0]}")
     if len(fulls) == 1:
-        words, counts = _vm_run(code, n_instr, banks[0], dyns[0],
-                                sparse_rows[0], fulls[0], n_regs, starts,
-                                _list_cap(starts), {})
-        return [words], counts
-    return _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls,
-                         n_regs, starts, devices)
+        out = _vm_run(code, n_instr, banks[0], dyns[0], sparse_rows[0],
+                      fulls[0], n_regs, starts)
+    else:
+        out = _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls,
+                            n_regs, starts, devices)
+    return out.words, out.counts
 
 
 # K6's shard table: int64 fields per shard, as csrc/vm_run_sharded.cu's
@@ -624,14 +655,18 @@ def shard_table(devices: list, shards: list) -> tuple[list, np.ndarray]:
     return out, table
 
 
-def k6_block(table: np.ndarray, program: K6Program,
-             pin: bool) -> tuple[torch.Tensor, dict]:
+def k6_block(table: np.ndarray, program: K6Program, pin: bool,
+             tails: np.ndarray | None = None) -> tuple[torch.Tensor, dict]:
     """K6's inputs for every card as one int32 host block (pinned with
     `pin`, for a copy that does not wait for the card), and the byte offset
-    of each part: the shard table at 0 (8-byte aligned), then the operands,
-    packed words, register offsets and aux words, range_lo, slot_off and
-    range_slots."""
+    of each part: the shard table at 0 (8-byte aligned), the epilogue's
+    table (`tails`, int64 [n_shards, TAIL_FIELDS] in the shard table's
+    order; none for a batch), then the operands, packed words, register
+    offsets and aux words, range_lo, slot_off and range_slots."""
+    if tails is None:
+        tails = np.zeros((0, TAIL_FIELDS), dtype=np.int64)
     parts = (("shards", table.view(np.int32).reshape(-1)),
+             ("tails", tails.view(np.int32).reshape(-1)),
              ("opers", program.opers), ("specs", program.specs),
              ("regw", program.regw), ("aux", program.aux),
              ("range_lo", program.range_lo),
@@ -654,61 +689,94 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls, n_regs,
-                  starts, devices) -> tuple[list, torch.Tensor]:
+                  starts, devices, tail: tuple | None = None):
     """vm_run_sharded's card route: K6 once per distinct card over all of
-    its shards, into one zeroed [4096] counts buffer per card (sharing one
-    allocation with the card's words), launched on every card before the
-    cards' counts are summed on devices[0]."""
+    its shards, its shard table and program in one block, launched on
+    every card before the cards' counts are summed on devices[0]. A batch
+    (no `tail`) adds into one zeroed [4096] counts buffer per card that
+    shares one allocation with the card's words. With `tail` (offsets,
+    cap: one program) each card's launch runs the filter's epilogue, its
+    buffer zeroed by the launch before (_tail_buffer): each shard's word
+    blocks rounded up to whole tiles (tail_layout), the card's total and,
+    with a cap, its shards' compact blocks; the cards' totals are summed
+    as their counts are. A VmFilter."""
     lib = load_library()
     widths = [full.shape[0] for full in fulls]
     members = _card_members(devices)
+    offsets, cap = tail if tail is not None else (None, None)
     n_sm = min(map(_sm_count, members))
     target = K6_WARPS_PER_SM * n_sm
     n_live = max(int(np.count_nonzero(starts[1:] > starts[:-1])), 1)
     # wide (8 words a lane) once the card with the fewest word blocks can
-    # give every SM the warps it holds at once; ranges enough for that
-    # card's warps to reach the target
+    # give every SM the warps it holds at once, and for a compaction (its
+    # tiles fewer and larger); ranges enough for that card's warps to reach
+    # the target
     n_wblocks = {card: sum(-(-widths[d] // 256) for d in ds)
                  for card, ds in members.items()}
-    wide = min(n_wblocks.values()) * n_live >= K6_RESIDENT_WARPS * n_sm
+    wide = (min(n_wblocks.values()) * n_live >= K6_RESIDENT_WARPS * n_sm
+            or cap is not None)
     if not wide:
         n_wblocks = {card: sum(-(-widths[d] // 32) for d in ds)
                      for card, ds in members.items()}
     n_ranges = min(n_live, -(-target // max(min(n_wblocks.values()), 1)))
-    program = k6_program(code, n_instr, starts, n_ranges, n_regs,
-                         8 if wide else 1)
-    words, counts = [None] * len(fulls), []
+    lane_words = 8 if wide else 1
+    program = k6_program(code, n_instr, starts, n_ranges, n_regs, lane_words)
+    words, counts, tails, blocks = [None] * len(fulls), {}, {}, {}
     for card, ds in members.items():
-        buf = torch.empty(MAX_BATCH_QUERIES + sum(widths[d] for d in ds),
+        head = MAX_BATCH_QUERIES if tail is None else 0
+        buf = torch.empty(head + sum(widths[d] for d in ds),
                           dtype=torch.int32, device=card)
-        counts.append(buf[:MAX_BATCH_QUERIES].zero_())
-        for d, part in zip(ds, buf[MAX_BATCH_QUERIES:].split(
-                [widths[d] for d in ds])):
+        for d, part in zip(ds, buf[head:].split([widths[d] for d in ds])):
             words[d] = part
+        if tail is None:
+            counts[card] = buf[:head].zero_()
+            continue
+        if cap is not None:
+            blocks[card] = torch.empty((len(ds), 1 + 2 * cap),
+                                       dtype=torch.int32, device=card)
+        tails[card] = card_tail(
+            tuple(widths[d] for d in ds), lane_words, blocks.get(card),
+            None if cap is None else [offsets[d] for d in ds], cap)
+        n_wblocks[card] = 4 * tails[card][1]
     groups, table = shard_table(devices, [
         (bank.data_ptr(), bank.shape[0], dyn.data_ptr(), dyn.shape[0],
          rows.data_ptr(), rows.shape[0], full.data_ptr(), out.data_ptr(), pw)
         for bank, dyn, rows, full, out, pw in zip(
             banks, dyns, sparse_rows, fulls, words, widths)])
-    block, offsets = k6_block(table, program, pin=True)
+    tail_rows = None
+    if tail is not None:
+        tail_rows = np.concatenate([tails[card][0]
+                                    for card, _row, _ds in groups])
+    block, parts = k6_block(table, program, pin=True, tails=tail_rows)
     # 16-byte loads where every row, mask and output is 16-byte aligned
     aligned = not ((table[:, [0, 2, 4, 6, 7, 8]] * [1, 1, 1, 1, 1, 4])
                    % 16).any()
-    for (card, row, ds), card_counts in zip(groups, counts):
+    totals = []
+    for card, row, ds in groups:
+        _table, _n_tiles, need, n_fill = tails.get(card, (None,) * 4)
         on_card = block.to(card, non_blocking=True)
         base = on_card.data_ptr()
-        with torch.cuda.device(card):
+        stream = torch.cuda.current_stream(card)
+        with torch.cuda.device(card), _tail_buffer(
+                card, stream, need) as (card_counts, total, epilogue):
+            counts.setdefault(card, card_counts)
             err = lib.lapis_vm_run_sharded(
-                base + 8 * SHARD_FIELDS * row, len(ds),
-                base + offsets["opers"], n_instr, base + offsets["range_lo"],
-                base + offsets["slot_off"], base + offsets["range_slots"],
-                program.range_lo.shape[0] - 1, 8 if wide else 1,
+                base + 8 * SHARD_FIELDS * row,
+                None if tail is None
+                else base + parts["tails"] + 8 * TAIL_FIELDS * row, len(ds),
+                base + parts["opers"], n_instr, base + parts["range_lo"],
+                base + parts["slot_off"], base + parts["range_slots"],
+                program.range_lo.shape[0] - 1, lane_words,
                 int(wide and aligned), n_wblocks[card], program.max_slots,
-                n_regs, int(program.zero_words), card_counts.data_ptr(),
-                torch.cuda.current_stream(card).cuda_stream)
-        _raise_on(err, "vm_run_sharded")
+                n_regs, int(program.zero_words), counts[card].data_ptr(),
+                *epilogue, -1 if cap is None else cap, n_fill or 0,
+                stream.cuda_stream)
+            _raise_on(err, "vm_run_sharded")
         VM_RUN_SHARDED.add()
-    return words, reduce_sum(counts, devices[0])
+        totals.append(total)
+    return VmFilter(words, reduce_sum(list(counts.values()), devices[0]),
+                    None if tail is None else reduce_sum(totals, devices[0]),
+                    None if cap is None else list(blocks.values()))
 
 
 def vm_run_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
@@ -723,6 +791,174 @@ def vm_run_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
             for bank, dyn, rows, full in zip(banks, dyns, sparse_rows, fulls)]
     return ([words for words, _ in outs],
             reduce_sum([counts for _, counts in outs], devices[0]))
+
+
+# -- K1 and K6 with the filter's epilogue: its total and compact blocks -------
+
+# K1's and K6's epilogue (csrc/compact_tile.cuh): a launch's buffer of
+# uint64 holds the EMIT counts (int32 [4096]), the total, the ticket, then
+# one descriptor a tile; a shard's epilogue row in K6's block (its block's
+# address, offset, first tile, tiles, first fill CTA, fill CTAs); a
+# shard's fill CTAs, one per TAIL_FILL_BYTES of the most slots past its
+# count (2 cap int32), at most TAIL_MAX_FILL
+TAIL_COUNTS = MAX_BATCH_QUERIES // 2
+TAIL_HEAD = TAIL_COUNTS + 2
+TAIL_FIELDS = 6
+TAIL_FILL_BYTES = 8192
+TAIL_MAX_FILL = 16
+
+
+class VmFilter(NamedTuple):
+    """One program's VM launch with its epilogue (vm_filter_sharded):
+    reg[0] words per shard, the EMIT counts [4096] int32 and the total
+    popcount of the words (0-d int64), both on the first shard's device,
+    and with a cap one int32 tensor [k, 1 + 2 cap] per distinct device of
+    the shards (first-seen order, its rows the blocks of that device's
+    shards in shard order), else None."""
+
+    words: list
+    counts: torch.Tensor
+    total: torch.Tensor
+    blocks: list | None
+
+
+@functools.lru_cache(maxsize=256)
+def tail_layout(widths: tuple, block_words: int) -> tuple:
+    """The epilogue's tiles over one card's shards of `widths` words: a
+    shard's word blocks of `block_words` rounded up to whole tiles of 4
+    (an empty shard keeps one: its block is written there), numbered shard
+    after shard. Per shard (first tile, tiles), and the launch's tiles."""
+    rows, n_tiles = [], 0
+    for n in widths:
+        tiles = max(1, -(-n // (4 * block_words)))
+        rows.append((n_tiles, tiles))
+        n_tiles += tiles
+    return tuple(rows), n_tiles
+
+
+def fill_ctas(cap: int) -> int:
+    """A shard's fill CTAs in a compaction: one per TAIL_FILL_BYTES of the
+    most slots past its count (2 cap int32), at most TAIL_MAX_FILL."""
+    return min(TAIL_MAX_FILL, max(1, -(-8 * cap // TAIL_FILL_BYTES)))
+
+
+def tail_table(blocks: torch.Tensor | None, offsets: list | None,
+               rows: tuple, fills: int) -> np.ndarray:
+    """K6's epilogue rows for one card's shards, int64 [n_shards,
+    TAIL_FIELDS]: the address of each shard's block (a row of `blocks`;
+    0 without a cap), its global offset (0 without), its tail_layout row,
+    and its first fill CTA and `fills` fill CTAs (numbered shard after
+    shard; 0 without a cap)."""
+    table = np.zeros((len(rows), TAIL_FIELDS), dtype=np.int64)
+    table[:, 2:4] = rows
+    if blocks is not None:
+        table[:, 0] = [row.data_ptr() for row in blocks]
+        table[:, 1] = offsets
+        table[:, 4] = fills * np.arange(len(rows))
+        table[:, 5] = fills
+    return table
+
+
+def card_tail(widths: tuple, lane_words: int, blocks: torch.Tensor | None,
+              offsets: list | None, cap: int | None) -> tuple:
+    """One card's epilogue for shards of `widths` words run with
+    `lane_words` words a lane: its table (tail_table over tail_layout), its
+    tiles, the uint64 its buffer needs (the head, and one descriptor a
+    tile with a cap) and its fill CTAs (0 without a cap). K1 over one shard
+    takes the same tiles (4 warps of 32 lane_words words)."""
+    rows, n_tiles = tail_layout(widths, 32 * lane_words)
+    if cap is None:
+        return tail_table(None, None, rows, 0), n_tiles, TAIL_HEAD, 0
+    fills = fill_ctas(cap)
+    return (tail_table(blocks, offsets, rows, fills), n_tiles,
+            TAIL_HEAD + n_tiles, fills * len(widths))
+
+
+def vm_filter_sharded(code: torch.Tensor, n_instr: int, banks: list,
+                      dyns: list, sparse_rows: list, fulls: list, n_regs: int,
+                      offsets: list | None = None,
+                      cap: int | None = None) -> VmFilter:
+    """vm_run_sharded for one program (one segment), with the total
+    popcount of its words and, with `cap` (and each shard's global word
+    offset), each shard's compact block [1 + 2 cap] of its words: the
+    count of non-zero words, the first `cap` global indices ascending,
+    their words, the fill (compact_nonzero_sharded's blocks). On the cards
+    one VM launch per card yields them all: K1 for a single shard, else K6
+    per card, each with its epilogue (csrc/compact_tile.cuh); no K10 or
+    K11 runs. The words' total is int64; the cards' totals and counts are
+    added on the first shard's device."""
+    devices = _shard_devices(fulls, banks, dyns, sparse_rows)
+    for bank, dyn, rows, full in zip(banks, dyns, sparse_rows, fulls):
+        _check_vm(code, n_instr, bank, dyn, rows, full, n_regs)
+    if cap is not None:
+        if offsets is None:
+            raise ValueError("a compaction needs the shards' offsets")
+        _check_compact(fulls, offsets, cap)
+    if devices[0].type == "cpu":
+        return vm_filter_sharded_plain(code, n_instr, banks, dyns,
+                                       sparse_rows, fulls, n_regs, offsets,
+                                       cap)
+    if devices[0].type != "cuda":
+        raise ValueError(f"vm_filter_sharded: no kernel for device "
+                         f"{devices[0]}")
+    starts = _segment_starts(None, n_instr)
+    if len(fulls) == 1:
+        return _vm_run(code, n_instr, banks[0], dyns[0], sparse_rows[0],
+                       fulls[0], n_regs, starts, (offsets, cap))
+    return _vm_run_cards(code, n_instr, banks, dyns, sparse_rows, fulls,
+                         n_regs, starts, devices, (offsets, cap))
+
+
+# per (card, stream): the epilogue's buffer the last launch on that stream
+# zeroed for the next
+_tail_spares: dict = {}
+_tail_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _tail_buffer(card: torch.device, stream, need: int | None):
+    """Under _tail_lock, the epilogue's buffer for a launch on `stream`: at
+    least `need` uint64, zeroed (by the launch before on the stream, or by
+    a fill the first time and when it grows), and a spare of its size for
+    the launch to zero, kept for the next launch once this one is queued
+    without error. Yields the EMIT counts (int32 [4096]) and the total
+    (0-d int64) in the buffer, and the launch's epilogue arguments (tail,
+    its length, spare, its length). A batch (`need` None) takes no buffer:
+    (None, None, no epilogue)."""
+    if need is None:
+        yield None, None, (None, 0, None, 0)
+        return
+    key = (card, stream.cuda_stream)
+    with _tail_lock:
+        buf = _tail_spares.pop(key, None)
+        if buf is None or buf.shape[0] < need:
+            size = max(2 * TAIL_COUNTS, 1 << (need - 1).bit_length())
+            buf = torch.zeros(size, dtype=torch.int64, device=card)
+        spare = torch.empty_like(buf)
+        yield (buf[:TAIL_COUNTS].view(torch.int32), buf[TAIL_COUNTS],
+               (buf.data_ptr() + 8 * TAIL_COUNTS, buf.shape[0] - TAIL_COUNTS,
+                spare.data_ptr(), spare.shape[0]))
+        _tail_spares[key] = spare
+
+def vm_filter_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
+                            dyns: list, sparse_rows: list, fulls: list,
+                            n_regs: int, offsets: list | None = None,
+                            cap: int | None = None) -> VmFilter:
+    """The plain PyTorch version of vm_filter_sharded: vm_run_sharded_plain
+    over the one segment, then the plain popcount and (with a cap)
+    compaction of its words (ops/reductions.py)."""
+    devices = _shard_devices(fulls, banks, dyns, sparse_rows)
+    words, counts = vm_run_sharded_plain(code, n_instr, banks, dyns,
+                                         sparse_rows, fulls, n_regs)
+    total = reduce_sum([reductions.popcount_words(part) for part in words],
+                       devices[0])
+    blocks = None
+    if cap is not None:
+        blocks = [torch.stack([reductions.compact_nonzero(words[d], cap,
+                                                          offsets[d])
+                               for d in ds])
+                  for ds in _card_members(devices).values()]
+    return VmFilter(words, counts, total, blocks)
 
 
 # -- K2: the Mutations reduction --------------------------------------------

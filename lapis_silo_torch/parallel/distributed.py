@@ -39,7 +39,8 @@ def initialize(init_method: str, world_size: int, rank: int, device,
     """Join the default process group as `rank` of `world_size` through
     `init_method` (``tcp://host:port`` or ``file:///path``), with `device`
     the rank's device: a CUDA device becomes the current one and, under
-    NCCL, the communicator's. Returns the backend's name."""
+    NCCL, the communicator's. Returns, once every rank has joined, the
+    backend's name."""
     device = torch.device(device)
     backend = backend or default_backend(device)
     if device.type == "cuda":
@@ -52,6 +53,11 @@ def initialize(init_method: str, world_size: int, rank: int, device,
         # NCCL builds its communicator at once, so a rank that cannot
         # reach its card fails here and not at the first collective
         device_id=device if backend == "nccl" else None)
+    # return only once every rank has joined: a rank that is done at once
+    # (a step that refuses its inputs) and destroys its group would
+    # otherwise close the connections a slower peer is still making, and
+    # that peer's join fails ("Connection closed by peer")
+    dist.barrier(device_ids=[device.index] if backend == "nccl" else None)
     return backend
 
 

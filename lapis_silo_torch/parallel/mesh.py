@@ -8,11 +8,11 @@ on every rank of a process group: global shard g = rank * L + l (local
 device l of `rank`, L local devices per rank) owns the words
 [g*PW/D, (g+1)*PW/D) of every bank row, dyn row and the full mask, D = world
 size x L shards in all. That is the order ``jax.devices()`` gives under
-``jax.distributed``: process-major. The filter VM (K1,
-``kernels.vm_run_sharded``), the count of its words (K11,
-``kernels.popcount_words_sharded``) and the 64-row Mutations reduction
-(K2, ``kernels.mutation_counts_sharded``) run on each local shard alone,
-and their counts are added on the rank's first device. Across ranks one
+``jax.distributed``: process-major. The filter VM with the count of its
+words in the same launch (K1 or K6, ``kernels.vm_filter_sharded``) and
+the 64-row Mutations reduction (K2, ``kernels.mutation_counts_sharded``)
+run on each local shard alone, and their counts are added on the rank's
+first device. Across ranks one
 ``torch.distributed.all_reduce`` adds them, where the reference's
 XLA-inserted all-reduces land (``parallel/distributed.py`` joins the
 processes). A plain list of devices is the one-process mesh, with no
@@ -125,17 +125,17 @@ class ShardedQueryStep:
         if start < 0:  # jax.lax.dynamic_slice wraps a negative start once
             start += n_rows
         start = min(max(start, 0), n_rows - SEGMENT_ROWS)
-        words, _emits = kernels.vm_run_sharded(
+        out = kernels.vm_filter_sharded(
             torch.from_numpy(host_code), host_code.shape[1], banks, dyns,
             self._no_sparse, fulls, MAX_REGS)
-        count = kernels.popcount_words_sharded(words).to(torch.int32)
+        words, count = out.words, out.total.to(torch.int32)
         mutation_counts = kernels.mutation_counts_sharded(
             banks, words, start, SEGMENT_ROWS)
         if not self.mesh.joined:
             return words, count, mutation_counts
         # the other ranks' shards: one int32 sum over the group, which
         # wraps as the reference's int32 psum does. NCCL runs it on its own
-        # stream after the current stream's K1 and K2, and the current
+        # stream after the current stream's VM and K2, and the current
         # stream then waits for it; gloo waits for them, stages the tensor
         # through the host and copies the sum back.
         totals = torch.cat([count.reshape(1), mutation_counts])

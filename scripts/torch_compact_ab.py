@@ -19,8 +19,8 @@ kernel, chain:
   before (`memset`), the compaction chain, K11 and the popcount chain; each
   kernel's bound (chip_smoke.py's compact_bound; the words' bytes for K11);
   whole calls (wall per call, host included): the bitset copy (evaluate()'s
-  route), the extraction with K10 (device_engine.compact_to_host: K10, one
-  copy of the blocks into pinned memory, the host's rebuild), the parent's
+  route), the extraction with K10 (K10, then device_engine.blocks_to_host:
+  one copy of the blocks into pinned memory, the host's rebuild), the parent's
   extraction (the chain, torch.stack, a copy into pageable memory, the
   rebuild), and two parts of the new one: K10 with its copy alone, and the
   host's rebuild alone (device_engine.rebuild_from_blocks and the reshape
@@ -69,7 +69,7 @@ def main() -> int:
 
     from lapis_silo_torch.ops import kernels, reductions
     from lapis_silo_torch.ops.device_engine import (
-        compact_to_host, rebuild_from_blocks)
+        blocks_to_host, rebuild_from_blocks)
     from lapis_silo_torch.ops.words import to_host
     from lapis_silo_torch.parallel.shards import gather_words, reduce_sum
 
@@ -138,7 +138,8 @@ def main() -> int:
                 return to_host(gather_words(words, "cpu"))
 
             def extract():
-                return compact_to_host(words, offsets, CAP, n_words)
+                return blocks_to_host(kernels.compact_nonzero_sharded(
+                    words, offsets, CAP), CAP, n_words)
 
             def parent():
                 packed = to_host(chain())

@@ -8,8 +8,11 @@ and ``evaluate()``: selective filters below the cap, wide ones that
 overflow it (the words are copied instead), the trivial FULL/ZERO filters
 and the empty result. ``reductions.compact_nonzero`` is held to the
 reference's fixed-size ``jnp.nonzero``, and Details through the query
-engine to the JAX engine's answer. ``kernels.compact_nonzero_sharded`` (K10's
-wrapper; its plain version on the CPU) over uneven shards with non-zero
+engine to the JAX engine's answer; the engine takes the blocks from the VM launch that
+writes the filter (``kernels.vm_filter_sharded``; tests/test_torch_fused.py
+holds that launch's layout). ``kernels.compact_nonzero_sharded`` (K10's
+wrapper, off the engine's routes; its plain version on the CPU) over
+uneven shards with non-zero
 offsets equals ``jnp.nonzero(size=cap, fill_value=0)`` per shard and on the
 flat words, at counts of 0, 1, cap - 1, cap, cap + 1 and many times cap.
 A numpy emulation of ``csrc/compact.cu`` over its host-side layout
@@ -238,16 +241,18 @@ def test_compact_nonzero_sharded_matches_jax_nonzero(fill):
 
 @pytest.mark.parametrize("fill", [0, CAP, 5 * CAP])
 def test_compact_to_host_rebuilds_the_flat_words(fill):
-    """compact_to_host over 3 shards equals the flat words while the
-    shards' counts fit the cap, and is None past it."""
-    from lapis_silo_torch.ops.device_engine import compact_to_host
+    """K10's blocks over 3 shards, brought to the host by blocks_to_host,
+    equal the flat words while the shards' counts fit the cap, and are None
+    past it."""
+    from lapis_silo_torch.ops.device_engine import blocks_to_host
 
     rng = np.random.default_rng(fill + 1)
     widths = [40, 25, 64]
     counts = [fill // 3, fill - fill // 3, 0]
     parts, _offsets, flat = _shards(rng, widths, counts)
     offsets = [0, 40, 65]
-    got = compact_to_host(parts, offsets, CAP, flat.size)
+    got = blocks_to_host(kernels.compact_nonzero_sharded(parts, offsets, CAP),
+                         CAP, flat.size)
     if fill <= CAP:
         np.testing.assert_array_equal(got, flat)
     else:
@@ -412,14 +417,22 @@ def test_compact_layout_and_table():
 
 
 def test_routes_launch_k10_per_shard_on_the_cpu(port_db, monkeypatch):
-    """evaluate_compact reaches K10's wrapper, whose plain version runs once
-    per shard on the CPU; never the kernel."""
+    """evaluate_compact takes each shard's block from the VM launch that
+    writes the filter (kernels.vm_filter_sharded, whose plain version runs
+    on the CPU: one VM run over the 4 shards, the plain compaction once per
+    shard); K10's wrapper runs neither its kernel nor its plain version."""
     engine = DeviceEngine(port_db, CPU, devices=[CPU] * 4)
     monkeypatch.setattr(engine, "COMPACT_MIN_WORDS", 0)
+    calls = []
+    compact = reductions.compact_nonzero
+    monkeypatch.setattr(reductions, "compact_nonzero",
+                        lambda *a: calls.append(a) or compact(*a))
     kernels.reset_counts()
     engine.evaluate_compact(Query(_body(FILTERS[0])).filter)
-    assert kernels.COMPACT_NONZERO.plain_launches == 4
-    assert kernels.COMPACT_NONZERO.launches == 0
+    assert kernels.VM_RUN_SHARDED.plain_launches == 1
+    assert len(calls) == 4
+    assert (kernels.COMPACT_NONZERO.launches,
+            kernels.COMPACT_NONZERO.plain_launches) == (0, 0)
 
 
 @pytest.mark.cuda
@@ -446,13 +459,13 @@ def test_compact_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_compact_to_host_from_many_threads(cuda_device):
-    """compact_to_host from 16 threads at once on one card, each on its own
-    words (K10's scratch and the pinned blocks are shared across calls):
-    every rebuild equals its words."""
+    """K10 and blocks_to_host from 16 threads at once on one card, each on
+    its own words (K10's scratch and the pinned blocks are shared across
+    calls): every rebuild equals its words."""
     import sys
     import threading
 
-    from lapis_silo_torch.ops.device_engine import compact_to_host
+    from lapis_silo_torch.ops.device_engine import blocks_to_host
 
     rng = np.random.default_rng(16)
     inputs = []
@@ -464,7 +477,8 @@ def test_compact_to_host_from_many_threads(cuda_device):
 
     def run(parts, flat):
         for _ in range(20):
-            got = compact_to_host(parts, [0, 5000], 64, flat.size)
+            got = blocks_to_host(kernels.compact_nonzero_sharded(
+                parts, [0, 5000], 64), 64, flat.size)
             if got is None or not np.array_equal(got, flat):
                 failures.append(flat.size)
 

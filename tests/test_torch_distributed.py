@@ -247,8 +247,13 @@ def _run_script(tmp_path: Path, world: int, local: int, bank, full,
     ranks = _start(tmp_path, [
         ["-c", RANK_SCRIPT, init, str(world), str(r), str(local),
          str(inputs), str(tmp_path / f"got{r}.json")] for r in range(world)])
-    return [(code, out, json.loads((tmp_path / f"got{r}.json").read_text()))
-            for r, (code, out) in enumerate(_wait(ranks))]
+    done = _wait(ranks)
+    results = [tmp_path / f"got{r}.json" for r in range(world)]
+    missing = [r for r, path in enumerate(results) if not path.exists()]
+    if missing:
+        pytest.fail(f"rank(s) {missing} wrote no result:\n{_outputs(ranks)}")
+    return [(code, out, json.loads(path.read_text()))
+            for (code, out), path in zip(done, results)]
 
 
 @pytest.mark.parametrize("seg_slice", ["unclamped", "clamped"])

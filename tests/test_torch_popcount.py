@@ -6,8 +6,9 @@ go whole through ``_popcount_words_jit`` on JAX's CPU and, split into uneven
 shards (an empty one and views that start inside a 16-byte quad included),
 through the port's wrapper on torch's CPU, where its plain version runs: the
 totals must be equal. The routes that count a filter (``count_async``,
-``DeviceFilter.popcount``, ``ShardedQueryStep``) reach the wrapper, whose
-plain version runs once per shard there. Every value is an integer: the
+``DeviceFilter.popcount``, ``ShardedQueryStep``) take the total from the VM
+launch that writes it (``kernels.vm_filter_sharded``), not from the
+wrapper. Every value is an integer: the
 tolerance is equality. The kernel against its plain version on the card is
 marked `cuda`."""
 
@@ -96,27 +97,30 @@ def _filter(position):
 
 
 def test_routes_reach_the_wrapper(engine):
-    """count_async, DeviceFilter.popcount and ShardedQueryStep count through
-    popcount_words_sharded: its plain version once per shard on the CPU,
-    the same totals as the host's popcount of the words."""
+    """count_async, DeviceFilter.popcount and ShardedQueryStep take the
+    filter's total from the VM launch that writes it
+    (kernels.vm_filter_sharded: on the CPU one plain VM run over the 4
+    shards), the same totals as the host's popcount of the words; none
+    reaches K11's wrapper."""
     flt = _filter(100)
     host = sum(int(np.unpackbits(w.view(np.uint8)).sum())
                for w in engine.evaluate(flt))
     kernels.reset_counts()
-    assert int(engine.count_async(flt)) == host
-    assert kernels.POPCOUNT_WORDS.plain_launches == 4
+    total = engine.count_async(flt)
+    assert total.dtype == torch.int64 and int(total) == host
     kernels.reset_counts()
     assert engine.device_filter(flt).popcount() == host
-    assert kernels.POPCOUNT_WORDS.plain_launches == 4
     code, _n, banks, dyns, _rows, fulls, _regs, _seg = engine.kernel_inputs(
         engine._prepare_program(engine.lower(flt)[0]))
     step = ShardedQueryStep(engine.shards.devices, engine.n_flat_words)
+    assert kernels.VM_RUN_SHARDED.plain_launches == 1
     kernels.reset_counts()
     words, count, _muts = step(np.ascontiguousarray(code.numpy()), banks,
                                dyns, fulls, 0)
     assert count.dtype == torch.int32 and int(count) == host
-    assert kernels.POPCOUNT_WORDS.plain_launches == 4
-    assert kernels.POPCOUNT_WORDS.launches == 0
+    assert kernels.VM_RUN_SHARDED.plain_launches == 1
+    assert (kernels.POPCOUNT_WORDS.launches,
+            kernels.POPCOUNT_WORDS.plain_launches) == (0, 0)
 
 
 @pytest.fixture
