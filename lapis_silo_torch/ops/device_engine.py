@@ -59,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 import weakref
 from collections import Counter, OrderedDict
 from dataclasses import dataclass
@@ -67,6 +68,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel.shards import (
     ShardLayout, gather_words, resolve, split_words,
 )
@@ -1347,11 +1349,26 @@ class DeviceEngine:
 
     def count_programs(self, lowered: list[_Program], min_bucket: int = 0,
                        min_sparse_k: int = 0, min_sparse_e: int = 0,
-                       max_bucket: int | None = None) -> list[int]:
+                       max_bucket: int | None = None,
+                       span: int = 0) -> list[int]:
         """count_batch over already-lowered programs (the micro-batcher
-        lowers per query so one bad query can't poison a whole batch)."""
-        return self.count_finish(*self.count_split(
-            lowered, min_bucket, max_bucket=max_bucket))
+        lowers per query so one bad query can't poison a whole batch).
+        With `span`, the id of a traced batch, the call is recorded under
+        it as ``batch.count`` and its count_finish as ``batch.readback``."""
+        start = time.time_ns()
+        split = self.count_split(lowered, min_bucket, max_bucket=max_bucket)
+        read = time.time_ns()
+        counts = self.count_finish(*split)
+        end = time.time_ns()
+        if not span:
+            return counts
+        recorder = tracing.RECORDER
+        count_span = recorder.new_id()
+        recorder.record(tracing.BATCH_COUNT, start, end, count_span, span,
+                        len(lowered))
+        recorder.record(tracing.BATCH_READBACK, read, end, recorder.new_id(),
+                        count_span)
+        return counts
 
     def count_dispatches(self, lowered: list[_Program], min_bucket: int = 0,
                          min_sparse_k: int = 0, min_sparse_e: int = 0,
@@ -1417,14 +1434,16 @@ class DeviceEngine:
                                    use_pool=not force_poolless)
         return [(counts, q)]
 
-    def count_coalesced(self, filter_expr, key: str | None = None) -> int:
+    def count_coalesced(self, filter_expr, key: str | None = None,
+                        span: int = 0, parsed: int = 0) -> int:
         """Count through the serving micro-batcher: concurrent callers are
-        coalesced into ONE launch (EMIT_COUNT program concat)."""
+        coalesced into ONE launch (EMIT_COUNT program concat). `span`: the
+        traced request it serves, or 0; `parsed`: when its parse ended."""
         with self._lower_lock:
             if self._batcher is None:
                 self._batcher = _MicroBatcher(self)
             batcher = self._batcher
-        return batcher.count(filter_expr, key)
+        return batcher.count(filter_expr, key, span, parsed)
 
     # -- Mutations ------------------------------------------------------------------
 
@@ -1556,6 +1575,13 @@ class _MicroBatcher:
     launch, deliver results. Queries arriving while a launch is in flight
     form the next batch. Holds only a weakref to the engine, so dropping the
     engine also ends the thread.
+
+    Traced (``tracing``): an item with a request span is stamped when it is
+    queued and when it is released, and its caller records
+    ``batcher.enqueue`` (from its parse on), ``batcher.wait`` and
+    ``batcher.wake``; a batch taken while tracing is
+    on is recorded as ``batch``, with ``batch.lower`` and the launch's
+    spans (``count_programs``) under it.
     """
 
     def __init__(self, engine: DeviceEngine):
@@ -1566,16 +1592,39 @@ class _MicroBatcher:
             target=self._loop, name="silo-torch-microbatch", daemon=True)
         self._thread.start()
 
-    def count(self, filter_expr, key: str | None = None) -> int:
+    def count(self, filter_expr, key: str | None = None, span: int = 0,
+              parsed: int = 0) -> int:
         item = {"filter": filter_expr, "key": key, "done": threading.Event(),
-                "result": None, "error": None}
+                "result": None, "error": None, "span": span}
+        if span:
+            item["queued"] = time.time_ns()
         with self._cv:
             self._queue.append(item)
             self._cv.notify()
         item["done"].wait()
+        if span:
+            woke = time.time_ns()
+            recorder = tracing.RECORDER
+            recorder.record(tracing.BATCHER_ENQUEUE, parsed, item["queued"],
+                            recorder.new_id(), span)
+            recorder.record(tracing.BATCHER_WAIT, item["queued"],
+                            item["taken"], recorder.new_id(), span)
+            recorder.record(tracing.BATCHER_WAKE, item["released"], woke,
+                            recorder.new_id(), span, item["batch"])
         if item["error"] is not None:
             raise item["error"]
         return item["result"]
+
+    @staticmethod
+    def _release(item: dict, taken: int, batch: int = 0) -> None:
+        """Hand the item back to its caller; a traced item learns when it
+        was taken off the queue and released, and the id of the batch that
+        served it."""
+        if item["span"]:
+            item["taken"] = taken
+            item["batch"] = batch
+            item["released"] = time.time_ns()
+        item["done"].set()
 
     def _loop(self):
         while True:
@@ -1585,12 +1634,16 @@ class _MicroBatcher:
                         return
                 batch = self._queue[:MAX_BATCH_QUERIES]
                 del self._queue[: len(batch)]
+            taken = time.time_ns()
             engine = self._engine_ref()
             if engine is None:
                 for item in batch:
                     item["error"] = RuntimeError("device engine was dropped")
-                    item["done"].set()
+                    self._release(item, taken)
                 return
+            traced = tracing.enabled()
+            recorder = tracing.RECORDER
+            batch_span = recorder.new_id() if traced else 0
             ready = []
             for item in batch:
                 try:
@@ -1599,18 +1652,24 @@ class _MicroBatcher:
                     ready.append(item)
                 except Exception as ex:  # noqa: BLE001 — per-query isolation
                     item["error"] = ex
-                    item["done"].set()
-            if not ready:
-                continue
-            try:
-                counts = engine.count_programs(
-                    [item["program"] for item in ready],
-                    min_bucket=SERVE_LEN_BUCKET, max_bucket=SERVE_LEN_BUCKET)
-                for item, count in zip(ready, counts):
-                    item["result"] = count
-            except Exception as ex:  # noqa: BLE001 — delivered to every caller
+                    self._release(item, taken, batch_span)
+            if traced:
+                recorder.record(tracing.BATCH_LOWER, taken, time.time_ns(),
+                                recorder.new_id(), batch_span, len(batch))
+            if ready:
+                try:
+                    counts = engine.count_programs(
+                        [item["program"] for item in ready],
+                        min_bucket=SERVE_LEN_BUCKET,
+                        max_bucket=SERVE_LEN_BUCKET, span=batch_span)
+                    for item, count in zip(ready, counts):
+                        item["result"] = count
+                except Exception as ex:  # noqa: BLE001 — delivered to every caller
+                    for item in ready:
+                        item["error"] = ex
                 for item in ready:
-                    item["error"] = ex
-            for item in ready:
-                item["done"].set()
+                    self._release(item, taken, batch_span)
+            if traced:
+                recorder.record(tracing.BATCH, taken, time.time_ns(),
+                                batch_span, 0, len(batch))
             del engine

@@ -16,6 +16,7 @@ import json
 import logging
 import time
 
+from .. import tracing
 from ..ops.vm import ProgramTooLarge, StructureMismatch
 from . import ast
 from .actions import Aggregated, Mutations, parse_action
@@ -84,21 +85,41 @@ class QueryEngine:
         return results
 
     def execute(self, query_string: str) -> dict:
+        """The query's result. With tracing on (``tracing.enabled()``) the
+        request and its parse are recorded as spans, a count's span rides
+        its batcher item, and the request's end may log the summary
+        (``Recorder.tick``)."""
+        if not tracing.enabled():
+            return self._execute(query_string, 0, 0)
+        recorder = tracing.RECORDER
+        span = recorder.new_id()
+        start = time.time_ns()
+        try:
+            return self._execute(query_string, span, start)
+        finally:
+            end = time.time_ns()
+            recorder.tick(end, recorder.record(tracing.REQUEST, start, end,
+                                               span))
+
+    def _execute(self, query_string: str, span: int, start: int) -> dict:
         query = Query(query_string)
-        t0 = time.perf_counter()
-        fast = self._try_fast_count(query)
+        t0 = time.time_ns()
+        if span:
+            recorder = tracing.RECORDER
+            recorder.record(tracing.PARSE, start, t0, recorder.new_id(), span)
+        fast = self._try_fast_count(query, span, t0)
         if fast is not None:
             return fast
         bitmaps = self._device_filter_for_mutations(query)
         if bitmaps is None:
             bitmaps = self._evaluate_filter(query)
-        t1 = time.perf_counter()
+        t1 = time.time_ns()
         rows = query.action.execute_and_order(self.database, bitmaps)
-        t2 = time.perf_counter()
+        t2 = time.time_ns()
         performance_logger.info(
             "filter time [microseconds]: %d, action time [microseconds]: %d",
-            int((t1 - t0) * 1e6),
-            int((t2 - t1) * 1e6),
+            (t1 - t0) // 1000,
+            (t2 - t1) // 1000,
         )
         return {"queryResult": rows}
 
@@ -112,13 +133,16 @@ class QueryEngine:
         except _HOST_FALLBACK:
             return None
 
-    def _device_rows(self, query: Query) -> list[dict] | None:
+    def _device_rows(self, query: Query, span: int = 0,
+                     parsed: int = 0) -> list[dict] | None:
         """Aggregated on the device engine, its rows unsorted and unsliced:
         a count through the micro-batcher, group-by through group_counts.
         None where the host answers: another action, no device engine,
         columns group_counts does not take, or a filter the port's lowering
         refuses. A multi-host partial takes these rows as they are
-        (parallel/multihost.py); ``_try_fast_count`` orders and slices."""
+        (parallel/multihost.py); ``_try_fast_count`` orders and slices.
+        `span`: the traced request a count serves, or 0; `parsed`: when
+        its parse ended."""
         action = query.action
         if not (self._use_device and isinstance(action, Aggregated)):
             return None
@@ -131,13 +155,15 @@ class QueryEngine:
                     return None
                 return action.rows_from_group_counts(self.database, groups)
             return [{"count": self._device_engine.count_coalesced(
-                query.filter, key=query.filter_key)}]
+                query.filter, key=query.filter_key, span=span,
+                parsed=parsed)}]
         except _HOST_FALLBACK:
             return None
 
-    def _try_fast_count(self, query: Query) -> dict | None:
+    def _try_fast_count(self, query: Query, span: int = 0,
+                        parsed: int = 0) -> dict | None:
         """The device rows of ``_device_rows``, ordered and sliced."""
-        rows = self._device_rows(query)
+        rows = self._device_rows(query, span, parsed)
         if rows is None:
             return None
         action = query.action
