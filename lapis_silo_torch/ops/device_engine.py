@@ -583,6 +583,11 @@ class DeviceEngine:
         self.pool_hits = 0
         self.pool_misses = 0
         self.pool_update_dispatches = 0
+        # lowerings of partition-free filters (compiled in one partition)
+        # and of the rest (compiled in every partition); memo hits in
+        # lower_cached count in neither
+        self.lowered_once = 0
+        self.lowered_per_partition = 0
 
         # group codes of the GROUP_CODES_CACHED column lists used last
         # (group_codes_for; None: unsupported), least recent first
@@ -823,8 +828,8 @@ class DeviceEngine:
 
     def lower_cached(self, filter_expr, key: str | None = None):
         """lower() with an LRU memo keyed by the filter's canonical JSON:
-        serving workloads repeat filters, and lowering walks every partition
-        in pure Python. Lowered programs are read-only downstream."""
+        serving workloads repeat filters, and lowering compiles in pure
+        Python. Lowered programs are read-only downstream."""
         if key is None:
             return self.lower(filter_expr)
         memo = self._program_memo

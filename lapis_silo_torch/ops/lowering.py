@@ -1,7 +1,8 @@
 """Filter-IR -> register-machine lowering.
 
 The port of ``lapis_silo_tpu/ops/lowering.py`` against the port's own ISA
-(``ops/vm.py``). It compiles the per-partition IR (``query/ir.py``) into one
+(``ops/vm.py``). It compiles the per-partition IR (``query/ir.py``), once
+for a filter whose IR is the same in every partition, into one
 partition-uniform VM program: static bank leaf
 loads, host-evaluated dynamic rows, implicit-majority reconstruction (NOT of
 OR(siblings)), and the N-Of bit-sliced threshold adder circuit.
@@ -72,23 +73,39 @@ def _emit_static_ref(engine, program: _Program, ref: tuple, dst: int) -> int:
 
 
 def lower(engine, filter_expr) -> tuple[_Program, int]:
-    """Compile the expression per partition (uniform mode) and flatten the
-    synchronized IRs into one program. Serialized: uniform_compile is shared
-    database state and concurrent callers lower at once."""
+    """Compile the expression in uniform mode and flatten the synchronized
+    IRs into one program. A partition-free filter (``ast.partition_free``)
+    compiles in the first partition alone, the same program from one IR;
+    any other compiles in every partition. Serialized: uniform_compile is
+    shared database state and concurrent callers lower at once."""
     db = engine.db
+    once = ast.partition_free(filter_expr)
     with engine._lower_lock:
-        db.uniform_compile = True
-        try:
-            irs = [
-                filter_expr.compile(db, partition, ast.NONE)
-                for partition in db.partitions
-            ]
-        finally:
-            db.uniform_compile = False
+        irs = _compile(db, filter_expr,
+                       db.partitions[:1] if once else db.partitions)
+        if once:
+            engine.lowered_once += 1
+        else:
+            engine.lowered_per_partition += 1
+    return _program(engine, irs)
 
+
+def _compile(db, filter_expr, partitions) -> list:
+    """The expression's uniform-mode IR in each of `partitions`; the caller
+    holds the engine's _lower_lock."""
+    db.uniform_compile = True
+    try:
+        return [filter_expr.compile(db, partition, ast.NONE)
+                for partition in partitions]
+    finally:
+        db.uniform_compile = False
+
+
+def _program(engine, irs: list) -> tuple[_Program, int]:
+    """One program from the IRs of one filter (one per partition, or one
+    for every partition), checked against the launch's limits."""
     program = _Program()
-    evaluators = [HostEvaluator(n) for n in engine.part_rows]
-    max_regs = _emit(engine, irs, program, evaluators, 0)
+    max_regs = _emit(engine, irs, program, 0)
     if len(program.opcodes) > _LEN_BUCKETS[-1]:
         raise ProgramTooLarge(len(program.opcodes))
     if len(program.dyn_rows) > _DYN_BUCKETS[-1]:
@@ -101,7 +118,16 @@ def lower(engine, filter_expr) -> tuple[_Program, int]:
     return program, max_regs
 
 
-def _as_source(engine, nodes: list, program: _Program, evaluators):
+def _selection_rows(engine, nodes: list) -> list:
+    """Each partition's Selection predicates, host-evaluated into its dyn
+    row (the only nodes lowering evaluates on the host)."""
+    return [
+        engine._pad(HostEvaluator(n_rows).evaluate(ir.Selection(n.predicates)))
+        for n_rows, n in zip(engine.part_rows, nodes, strict=True)
+    ]
+
+
+def _as_source(engine, nodes: list, program: _Program):
     """If the node set lowers to ONE gatherable b-operand, return (bsrc,
     operand): the caller fuses it into its ALU op (one instruction per
     filter leaf). Returns None for subtrees."""
@@ -121,19 +147,15 @@ def _as_source(engine, nodes: list, program: _Program, evaluators):
     if node_type is ir.Selection and node.child is None:
         if any(n.child is not None for n in nodes):
             raise StructureMismatch("selection child")
-        rows = [
-            engine._pad(evaluator.evaluate(ir.Selection(n.predicates)))
-            for evaluator, n in zip(evaluators, nodes)
-        ]
-        return (B_DYN, program.add_dyn(rows))
+        return (B_DYN, program.add_dyn(_selection_rows(engine, nodes)))
     return None
 
 
-def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
+def _emit(engine, nodes: list, program: _Program, dst: int) -> int:
     """Emit instructions leaving the subtree's result in reg[dst]; returns
     the register high-water mark (registers are allocated like a stack: a
     node may freely use dst and everything above it)."""
-    source = _as_source(engine, nodes, program, evaluators)
+    source = _as_source(engine, nodes, program)
     if source is not None:
         program.load(dst, *source)
         return dst + 1
@@ -143,7 +165,7 @@ def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
         # static ref needing majority reconstruction
         return _emit_static_ref(engine, program, node.static_ref, dst)
     if node_type is ir.Not:
-        hw = _emit(engine, [n.child for n in nodes], program, evaluators, dst)
+        hw = _emit(engine, [n.child for n in nodes], program, dst)
         program.alu_src(M_XOR, dst, dst, B_FULL)
         return hw
     if node_type in (ir.And, ir.Or):
@@ -156,15 +178,14 @@ def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
             program.load(dst, B_FULL if node_type is ir.And else B_ZERO)
             return dst + 1
         mode = M_AND if node_type is ir.And else M_OR
-        hw = _emit(engine, [n.children[0] for n in nodes], program, evaluators,
-                   dst)
+        hw = _emit(engine, [n.children[0] for n in nodes], program, dst)
         for i in range(1, arity):
             child = [n.children[i] for n in nodes]
-            src = _as_source(engine, child, program, evaluators)
+            src = _as_source(engine, child, program)
             if src is not None:
                 program.alu_src(mode, dst, dst, *src)
             else:
-                hw = max(hw, _emit(engine, child, program, evaluators, dst + 1))
+                hw = max(hw, _emit(engine, child, program, dst + 1))
                 program.alu(mode, dst, dst, dst + 1)
         return hw
     if node_type is ir.Selection:
@@ -172,12 +193,8 @@ def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
         # Predicates are host-evaluated into a dynamic row per partition.
         if any(n.child is None for n in nodes):
             raise StructureMismatch("selection child")
-        rows = [
-            engine._pad(evaluator.evaluate(ir.Selection(n.predicates)))
-            for evaluator, n in zip(evaluators, nodes)
-        ]
-        idx = program.add_dyn(rows)
-        hw = _emit(engine, [n.child for n in nodes], program, evaluators, dst)
+        idx = program.add_dyn(_selection_rows(engine, nodes))
+        hw = _emit(engine, [n.child for n in nodes], program, dst)
         program.alu_src(M_AND, dst, dst, B_DYN, idx)
         return hw
     if node_type is ir.Threshold:
@@ -189,12 +206,11 @@ def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
             for n in nodes
         ):
             raise StructureMismatch("threshold")
-        return _emit_threshold(engine, nodes, program, evaluators, dst)
+        return _emit_threshold(engine, nodes, program, dst)
     raise StructureMismatch(f"unknown node {node_type}")
 
 
-def _emit_threshold(engine, nodes: list, program: _Program, evaluators,
-                    dst: int) -> int:
+def _emit_threshold(engine, nodes: list, program: _Program, dst: int) -> int:
     """k-of-n as a bit-sliced counter circuit over word registers:
     P = ceil(log2(max(n, k)+1)) counter planes live in reg[dst..dst+P-1];
     each child's result increments the counter with a ripple-carry adder
@@ -213,11 +229,11 @@ def _emit_threshold(engine, nodes: list, program: _Program, evaluators,
     for i in range(n):
         # child value = the incoming carry
         child = [m.children[i] for m in nodes]
-        src = _as_source(engine, child, program, evaluators)
+        src = _as_source(engine, child, program)
         if src is not None:
             program.load(c0, *src)
         else:
-            hw = max(hw, _emit(engine, child, program, evaluators, c0))
+            hw = max(hw, _emit(engine, child, program, c0))
         cur, nxt = c0, c1
         for p in planes:
             program.alu(M_AND, nxt, p, cur)   # carry out

@@ -283,9 +283,9 @@ class NucleotideSymbolEquals(Expression):
             return _lower_or(db, [c.compile(db, partition, NONE) for c in children])
         sym_id = NUCLEOTIDE.to_id(symbol)
         return ir.Plane(
-            segment.plane(sym_id, self.position),
             label=f"nuc:{name}:{self.position + 1}{symbol}",
             static_ref=("nuc", name, sym_id, self.position),
+            row=(segment, sym_id, self.position),
         )
 
 
@@ -339,9 +339,9 @@ class AASymbolEquals(Expression):
             symbol = AMINO_ACID.to_char(int(segment.reference_ids[self.position]))
         sym_id = AMINO_ACID.to_id(symbol)
         return ir.Plane(
-            segment.plane(sym_id, self.position),
             label=f"aa:{self.sequence_name}:{self.position + 1}{symbol}",
             static_ref=("aa", self.sequence_name, sym_id, self.position),
+            row=(segment, sym_id, self.position),
         )
 
 
@@ -882,6 +882,28 @@ _EXPRESSION_TYPES = {
     "InsertionContains": lambda json: InsertionContains.parse_typed(json, NUCLEOTIDE),
     "AminoAcidInsertionContains": lambda json: InsertionContains.parse_typed(json, AMINO_ACID),
 }
+
+
+# Types whose uniform-mode IR is the same in every partition apart from
+# plane words: the leaves read only the partition's segment length and
+# reference (one per database) and yield Full, Empty or static-bank Planes;
+# the inner nodes only combine their children's IR. Every other type reads
+# per-partition columns or insertion indexes.
+_PARTITION_FREE_LEAVES = (TrueExpr, FalseExpr, NucleotideSymbolEquals,
+                          AASymbolEquals, HasNucleotideMutation, HasAAMutation)
+_PARTITION_FREE_LISTS = (AndExpr, OrExpr, NOfExpr)
+_PARTITION_FREE_WRAPPERS = (NotExpr, MaybeExpr, ExactExpr)
+
+
+def partition_free(expr: Expression) -> bool:
+    """True when `expr` is built from partition-free types only: its uniform
+    compile in one partition, words aside, is its compile in every one."""
+    kind = type(expr)
+    if kind in _PARTITION_FREE_LISTS:
+        return all(partition_free(child) for child in expr.children)
+    if kind in _PARTITION_FREE_WRAPPERS:
+        return partition_free(expr.child)
+    return kind in _PARTITION_FREE_LEAVES
 
 
 def parse_expression(json) -> Expression:

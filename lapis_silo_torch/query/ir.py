@@ -59,7 +59,6 @@ class Empty(Node):
         return Full()
 
 
-@dataclass
 class Plane(Node):
     """A borrowed packed bitset row: a (symbol, position) plane row, an
     indexed-column value bitmap, or a precomputed host bitmap (insertion
@@ -68,11 +67,24 @@ class Plane(Node):
     `static_ref` = (kind, segment_name, symbol_id, position) marks rows that
     live in the device-resident static plane bank (the same row id in every
     partition); None means per-partition dynamic data that the device engine
-    uploads per query."""
+    uploads per query. Such a row may be given as `row` = (segment index,
+    symbol_id, position) in place of its words: they are built on the first
+    read of `words`, so a lowering that emits only the static_ref never
+    builds them."""
 
-    words: np.ndarray
-    label: str = ""
-    static_ref: tuple | None = None
+    def __init__(self, words: np.ndarray | None = None, label: str = "",
+                 static_ref: tuple | None = None, row: tuple | None = None):
+        self._words = words
+        self._row = row
+        self.label = label
+        self.static_ref = static_ref
+
+    @property
+    def words(self) -> np.ndarray:
+        if self._words is None:
+            segment, symbol_id, position = self._row
+            self._words = segment.plane(symbol_id, position)
+        return self._words
 
 
 @dataclass
