@@ -19,23 +19,19 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from benchmark import corpus as corpus_mod  # noqa: E402
 from benchmark.load import Record  # noqa: E402
-from benchmark.reference.control import StaleReference  # noqa: E402
-from benchmark.run import cell_files, check, load_spec  # noqa: E402
-from benchmark.traffic.generator import Generator  # noqa: E402
+from benchmark.run import (  # noqa: E402
+    cell_files, check, corpus_module, load_spec,
+)
 
 
 def readings(workload: str, seed: int, seconds: float,
              overrides=None, spec=None) -> dict:
     """The checks of a run whose every answer the control gave."""
     config, mix = cell_files(spec or load_spec(), workload, overrides)
-    corpus = corpus_mod.draw(
-        config["n_sequences"], config["sequence_length"],
-        config["n_partitions"], config["mutations_per_genome"], seed)
-    generator = Generator(mix, corpus.reference, corpus_mod.COUNTRIES,
-                          corpus_mod.YEAR, corpus_mod.MONTH,
-                          corpus_mod.N_DAYS, seed)
+    corpus_mod = corpus_module(config)
+    corpus = corpus_mod.draw_for(config, seed)
+    generator = corpus_mod.generator_for(mix, corpus, seed)
     loop = mix["loop"]
     if loop["kind"] == "open":
         n = len(generator.arrivals(loop["rate_per_s"], seconds))
@@ -46,9 +42,9 @@ def readings(workload: str, seed: int, seconds: float,
         requests = generator.stream()
         requests.prefetch(n)
     records = [Record(i, requests[i].kind, 0.0, 0.0, 0.0) for i in range(n)]
-    stale = StaleReference(corpus, corpus_mod.COUNTRIES, corpus_mod.YEAR,
-                           corpus_mod.MONTH)
-    return check(corpus, mix, seed, records, requests, answer=stale.answer)
+    stale = corpus_mod.stale_reference_for(corpus)
+    return check(corpus_mod, corpus, mix, seed, records, requests,
+                 answer=stale.answer)
 
 
 def main() -> int:

@@ -10,6 +10,13 @@ the three other plain nucleotides.
 
 ``draw`` yields plain NumPy arrays, which the plain reference reads;
 ``build_database`` hands them to the port's own constructors.
+
+The module is a corpus module: a configuration names it under its key
+``"corpus"``, and the harness calls on it only the five functions of that
+contract, ``draw_for``, ``build_database``, ``generator_for``,
+``reference_for`` and ``stale_reference_for``
+(``benchmark/run.py``'s ``CORPUS_CONTRACT``). A deployment of another
+schema brings a module of its own that gives the same five.
 """
 
 from __future__ import annotations
@@ -19,6 +26,10 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+
+from benchmark.reference.control import StaleReference
+from benchmark.reference.silo import Reference
+from benchmark.traffic.generator import Generator
 
 COUNTRIES = ["Switzerland", "Germany", "France", "Italy", "Austria", "Spain"]
 YEAR, MONTH = 2021, 3  # every sequence was collected on day 1..27 of it
@@ -88,6 +99,29 @@ def draw(n_rows: int, length: int, n_partitions: int,
                                     rows, positions, symbols, order))
         row_base += part_rows
     return Corpus(reference, partitions)
+
+
+def draw_for(config: dict, seed: int) -> Corpus:
+    """The configuration's corpus, drawn from the seed."""
+    return draw(config["n_sequences"], config["sequence_length"],
+                config["n_partitions"], config["mutations_per_genome"], seed)
+
+
+def generator_for(mix: dict, corpus: Corpus, seed: int) -> Generator:
+    """The generator of the mix's requests over this corpus' genome and
+    metadata."""
+    return Generator(mix, corpus.reference, COUNTRIES, YEAR, MONTH, N_DAYS,
+                     seed)
+
+
+def reference_for(corpus: Corpus) -> Reference:
+    """The plain reference that the comparison of ``correct`` reads."""
+    return Reference(corpus, COUNTRIES, YEAR, MONTH)
+
+
+def stale_reference_for(corpus: Corpus) -> StaleReference:
+    """The control: the reference a release behind."""
+    return StaleReference(corpus, COUNTRIES, YEAR, MONTH)
 
 
 def build_database(corpus: Corpus):

@@ -88,11 +88,13 @@ def closed(execute, requests, clients: int, seconds: float | None,
         gate.wait()
         t_end = window["end"]
         while True:
-            i = next(counter)
-            if seconds is None and i >= len(requests):
-                return
+            # the close is checked before an index is taken: every index
+            # taken is sent and recorded
             start = time.perf_counter()
             if start >= t_end:
+                return
+            i = next(counter)
+            if seconds is None and i >= len(requests):
                 return
             request = requests[i]
             log.index.append(i)

@@ -5,7 +5,9 @@
 
 Set-up draws the corpus from the seed, builds the port's database and
 installs its device engine on ``cuda:0`` (``lapis_silo_torch.install``),
-then warms the cell's routes with requests of its own mix. The window
+then warms the cell's routes with requests of its own mix. The corpus, the
+requests and the plain reference come from the module that the cell's
+configuration names under ``"corpus"`` (``CORPUS_CONTRACT``). The window
 drives ``Database.execute_query`` from client threads for ``--seconds``.
 Once it has closed, the plain reference checks a sample of the answers
 drawn from the seed. The last line of standard output is one JSON object:
@@ -43,6 +45,9 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lapis_silo_tpu")
+# what the harness calls on a configuration's corpus module, and nothing else
+CORPUS_CONTRACT = ("draw_for", "build_database", "generator_for",
+                   "reference_for", "stale_reference_for")
 METRICS_DIR = Path(__file__).resolve().parent / "metrics"
 
 
@@ -93,6 +98,26 @@ def cell_files(spec: dict, workload: str, overrides: dict | None = None):
     return config, mix
 
 
+def corpus_module(config: dict):
+    """The module named by the configuration's ``"corpus"``: a module under
+    ``benchmark.`` that gives every function of ``CORPUS_CONTRACT``."""
+    name = config.get("corpus")
+    if not isinstance(name, str) or not name.startswith("benchmark."):
+        raise SystemExit(f"configuration {config.get('name')!r}: \"corpus\" "
+                         f"must name a module under benchmark., not {name!r}")
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as error:
+        raise SystemExit(f"configuration {config.get('name')!r}: corpus "
+                         f"module {name!r} cannot be imported: {error}")
+    missing = [f for f in CORPUS_CONTRACT
+               if not callable(getattr(module, f, None))]
+    if missing:
+        raise SystemExit(f"configuration {config.get('name')!r}: corpus "
+                         f"module {name} lacks {', '.join(missing)}")
+    return module
+
+
 def metric_entries(spec: dict, cell: str, trace: bool) -> list[dict]:
     """The cell's end-to-end metrics, or with `trace` its per-layer ones:
     those that list the cell, and those that list none whose end-to-end
@@ -115,13 +140,29 @@ def records_timeline(spec: dict, cell: str, trace: bool) -> bool:
                         for m in metric_entries(spec, cell, False))
 
 
-def reader(name: str):
-    """``metrics/<name>.py``'s ``read(run)``."""
+def metric_module(name: str):
+    """``metrics/<name>.py``: its ``read(run)``, and where the metric reads
+    program counters, its ``counters(engine)``."""
     spec = importlib.util.spec_from_file_location(
         f"benchmark_metric_{name.replace('.', '_')}", METRICS_DIR / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str):
+    """``metrics/<name>.py``'s ``read(run)``."""
+    return metric_module(name).read
+
+
+def counter_probes(spec: dict, cell: str, trace: bool) -> list:
+    """The ``counters(engine)`` of the run's metric readers that have one:
+    each returns {name: int} of the program's counters that its metric
+    reads, snapshotted at the window's open and close beside `counters`."""
+    modules = (metric_module(m["name"])
+               for m in metric_entries(spec, cell, trace))
+    return [m.counters for m in modules if callable(getattr(m, "counters",
+                                                            None))]
 
 
 # -- one run --------------------------------------------------------------------
@@ -144,11 +185,16 @@ class Run:
         return closed - opened
 
 
-def counters(engine) -> dict:
+def counters(engine, probes=()) -> dict:
+    """The program's counters that every run logs, and those that the
+    `probes` (`counter_probes`) add."""
     from lapis_silo_torch.ops import kernels
     vm = (kernels.VM_RUN, kernels.VM_RUN_SHARDED)
-    return {"vm_launches": sum(k.launches + k.plain_launches for k in vm),
-            "pool_hits": engine.pool_hits, "pool_misses": engine.pool_misses}
+    out = {"vm_launches": sum(k.launches + k.plain_launches for k in vm),
+           "pool_hits": engine.pool_hits, "pool_misses": engine.pool_misses}
+    for probe in probes:
+        out.update(probe(engine))
+    return out
 
 
 def holder(seed: int, n_ahead: int, quota: int):
@@ -183,13 +229,11 @@ class Cell:
                  overrides: dict | None = None, spec: dict | None = None):
         import torch
 
-        from benchmark import corpus as corpus_mod
-        from benchmark.traffic.generator import Generator
-
         self.torch = torch
         self.spec = spec or load_spec()
         self.workload, self.seed, self.device = workload, seed, device
         config, self.mix = cell_files(self.spec, workload, overrides)
+        self.corpus_module = corpus_mod = corpus_module(config)
         at = PROCESS_START
 
         import lapis_silo_torch
@@ -198,9 +242,7 @@ class Cell:
         if device.type == "cuda":
             kernels.load_library()
             at = self._stage("kernels", at)
-        self.corpus = corpus_mod.draw(
-            config["n_sequences"], config["sequence_length"],
-            config["n_partitions"], config["mutations_per_genome"], seed)
+        self.corpus = corpus_mod.draw_for(config, seed)
         at = self._stage("corpus_draw", at)
         self.db = corpus_mod.build_database(self.corpus)
         at = self._stage("database", at)
@@ -208,9 +250,7 @@ class Cell:
         self._sync()
         at = self._stage("engine_build_and_upload", at)
         self.at = at
-        self.generator = Generator(
-            self.mix, self.corpus.reference, corpus_mod.COUNTRIES,
-            corpus_mod.YEAR, corpus_mod.MONTH, corpus_mod.N_DAYS, seed)
+        self.generator = corpus_mod.generator_for(self.mix, self.corpus, seed)
         self.loop = self.mix["loop"]
         self.clients = self.loop.get("clients") or self.loop["workers"]
         self.flat_words = self.engine.n_flat_words
@@ -260,22 +300,22 @@ class Cell:
         gc.collect()
 
     def drive(self, requests, arrivals, seconds: float, trace: bool) -> Run:
-        """One window of load, with counters of launches beside it; with
-        `trace` spans too, and the card's timeline where the run reads it
-        (`records_timeline`)."""
+        """One window of load, with the program's counters at its open and
+        close (`counters`, with the probes of the run's readers); with
+        `trace` the port's spans too, and the card's timeline where the run
+        reads it (`records_timeline`)."""
         from benchmark.load import GRACE_S, closed, open_
         from benchmark.tracing import Trace
 
-        execute = self.execute
         tracer = (Trace() if records_timeline(self.spec, self.workload, trace)
                   else None)
         if trace:
             tracer.attach(self.engine)
-            execute = tracer.execute(execute)
-        marks = {"open": counters(self.engine)}
+        probes = counter_probes(self.spec, self.workload, trace)
+        marks = {"open": counters(self.engine, probes)}
 
         def close():
-            marks["close"] = counters(self.engine)
+            marks["close"] = counters(self.engine, probes)
             if tracer is not None:
                 tracer.stop(self.device)
 
@@ -288,10 +328,10 @@ class Cell:
             tracer.start(self.device)
         lateness = []
         if arrivals is None:
-            records, t0, t1 = closed(execute, requests, self.clients, seconds,
-                                     close, hold)
+            records, t0, t1 = closed(self.execute, requests, self.clients,
+                                     seconds, close, hold)
         else:
-            records, t0, t1, lateness = open_(execute, requests, arrivals,
+            records, t0, t1, lateness = open_(self.execute, requests, arrivals,
                                               self.clients, seconds, close)
         if trace:
             tracer.detach(self.engine)
@@ -309,20 +349,17 @@ class Cell:
             self.torch.cuda.empty_cache()
 
 
-def check(corpus, mix: dict, seed: int, records, requests,
+def check(corpus_mod, corpus, mix: dict, seed: int, records, requests,
           answer=None) -> dict:
     """The checks of `correct`, each (number, limit): the sample's answers
-    the reference finds wrong, the requests that failed, those never
-    answered, and the mix's kinds with no answer checked. `answer` (a
-    query's body to its rows) stands in for the served answers where given:
-    the control's readings."""
-    from benchmark import corpus as corpus_mod
+    the reference (`corpus_mod`'s for `corpus`) finds wrong, the requests
+    that failed, those never answered, and the mix's kinds with no answer
+    checked. `answer` (a query's body to its rows) stands in for the served
+    answers where given: the control's readings."""
     from benchmark.reference.compare import agrees
-    from benchmark.reference.silo import Reference
 
     started = time.perf_counter()
-    reference = Reference(corpus, corpus_mod.COUNTRIES, corpus_mod.YEAR,
-                          corpus_mod.MONTH)
+    reference = corpus_mod.reference_for(corpus)
     built = time.perf_counter()
     checked = sample(records, mix["check"], seed)
     wrong = []
@@ -359,7 +396,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
                    if device.type == "cuda" else 0)
     _report_load(run, requests)
     cell.release()
-    checks = check(cell.corpus, cell.mix, seed, run.records, requests)
+    checks = check(cell.corpus_module, cell.corpus, cell.mix, seed,
+                   run.records, requests)
 
     metrics = {}
     for metric in metric_entries(cell.spec, workload, trace):

@@ -22,4 +22,4 @@ def test_a_small_counts_cell_on_the_card(card, trace):
         assert 0 < result["metrics"]["vm_roofline_pct"]["value"] <= 100
         assert result["breakdown"]["device_ops"]
     else:
-        assert result["metrics"]["qps"]["value"] > 0
+        assert result["metrics"]["card_us_per_query"]["value"] > 0

@@ -6,7 +6,7 @@ import json
 import re
 from pathlib import Path
 
-from benchmark.run import metric_entries
+from benchmark.run import CORPUS_CONTRACT, corpus_module, metric_entries
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -18,9 +18,10 @@ def test_every_name_resolves_to_a_file():
         data = json.loads((ROOT / config["file"]).read_text())
         assert data["name"] == config["name"]
         assert set(config["reduced"]) <= set(data["reduced"])
-        for key in ("n_sequences", "sequence_length", "n_partitions",
-                    "mutations_per_genome"):
-            assert isinstance(data[key], int)
+        if data["corpus"] == "benchmark.corpus":  # the keys its draw_for reads
+            for key in ("n_sequences", "sequence_length", "n_partitions",
+                        "mutations_per_genome"):
+                assert isinstance(data[key], int)
     for cell in SPEC["workloads"]:
         assert NAME.match(cell["name"])
         assert (ROOT / "benchmark" / "traffic" / f"{cell['traffic']}.json"
@@ -30,6 +31,16 @@ def test_every_name_resolves_to_a_file():
         assert NAME.match(metric["name"])
         assert (ROOT / "benchmark" / "metrics" / f"{metric['name']}.py"
                 ).exists()
+
+
+def test_every_configuration_names_a_benchmark_corpus_module():
+    for config in SPEC["configs"]:
+        data = json.loads((ROOT / config["file"]).read_text())
+        assert data["corpus"].startswith("benchmark."), config["name"]
+        module = corpus_module(data)
+        assert module.__name__ == data["corpus"]
+        for name in CORPUS_CONTRACT:
+            assert callable(getattr(module, name)), (config["name"], name)
 
 
 def test_each_cell_reports_setup_another_end_to_end_and_a_layer():

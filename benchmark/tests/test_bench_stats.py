@@ -57,7 +57,7 @@ def test_a_stall_moves_the_tail():
         (105.0 - records[45].due) * 1e3)
 
 
-@pytest.mark.parametrize("name", ["qps", "qps.hot"])
+@pytest.mark.parametrize("name", ["qps.counts", "qps.hot"])
 def test_qps_counts_answers_inside_the_window(name):
     records = [Record(i, "count", 100.0, 100.0, end=100.0 + i * 0.11)
                for i in range(100)]  # the last ten end after 110

@@ -1,5 +1,5 @@
 """The idle share, the card's time per query, the gaps' labels and the
-roofline's bytes, on hand-made timelines and queries."""
+roofline's bytes, on hand-made timelines, queries and port spans."""
 
 import json
 from pathlib import Path
@@ -9,16 +9,16 @@ import pytest
 from benchmark.load import Record
 from benchmark.roofline import HBM_BYTES_PER_S, launch_bytes, leaves
 from benchmark.run import Run, metric_entries, reader, records_timeline
-from benchmark.tracing import Trace, breakdown, busy, busy_s, gaps, open_span
+from benchmark.tracing import RING_LOST, Trace, breakdown, busy, busy_s, gaps
+from lapis_silo_torch import tracing
 
 MS = 1_000_000  # ns
 
 
-def _trace(events, spans=(), launches=()):
+def _trace(events, launches=()):
     trace = Trace()
     trace.t0_ns, trace.t1_ns = 0, 100 * MS
     trace.device_events = list(events)
-    trace.spans = list(spans)
     trace.launches = list(launches)
     return trace
 
@@ -44,18 +44,53 @@ def test_idle_share_reader():
             trace=_trace([]))) is None
 
 
-def test_gaps_are_named_by_the_span_open_last():
-    spans = [("request:count", 0, 90 * MS), ("lower_cached", 40 * MS,
-                                              60 * MS)]
-    assert open_span(spans, 50 * MS) == "lower_cached"
-    assert open_span(spans, 70 * MS) == "request:count"
-    assert open_span(spans, 95 * MS) == "no span"
-    trace = _trace([("k", 0, 30 * MS), ("m", 35 * MS, 36 * MS),
-                    ("k", 70 * MS, 100 * MS)], spans)
-    out = breakdown(trace)
+def _ring(spans, capacity=64):
+    """A port recorder holding `spans` ((name, start, end) in ns)."""
+    ring = tracing.Recorder(capacity)
+    for name, start, end in spans:
+        ring.record(tracing.NAMES.index(name), start, end, ring.new_id())
+    return ring
+
+
+def test_gaps_are_named_by_the_span_open_last(monkeypatch, capsys):
+    """The port's span that opened last names a gap; where the port's ring
+    lost the window, every gap is named ``RING_LOST``, and standard error
+    says so."""
+    events = [("k", 0, 30 * MS), ("m", 35 * MS, 36 * MS),
+              ("k", 70 * MS, 100 * MS)]
+    monkeypatch.setattr(tracing, "RECORDER", _ring([
+        ("request", 0, 90 * MS), ("batch.lower", 40 * MS, 60 * MS)]))
+    out = breakdown(_trace(events))
     assert out["device_ops"] == [["k", 0.06], ["m", 0.001]]
-    assert out["idle_gaps"] == [["lower_cached", 0.034],
-                                ["request:count", 0.005]]
+    # gaps 36-70 ms (middle 53), 30-35 (32.5)
+    assert out["idle_gaps"] == [["batch.lower", 0.034], ["request", 0.005]]
+    assert capsys.readouterr().err == ""
+    trace = _trace(events)
+    lost = _ring([("batch", t * MS, t * MS + 1) for t in range(8)], 4)
+    assert lost.spans(trace.t0_ns, trace.t1_ns) is None
+    monkeypatch.setattr(tracing, "RECORDER", lost)
+    out = breakdown(trace)
+    assert out["idle_gaps"] == [[RING_LOST, 0.034], [RING_LOST, 0.005]]
+    assert "ring lost part of the window" in capsys.readouterr().err
+
+
+def test_gaps_are_named_by_the_port_spans_gc_first(monkeypatch, capsys):
+    """A collector pass open at a gap's middle names it, though a request
+    that started later covers it too; else the port's span that started
+    last."""
+    ring = _ring([("request", 0, 90 * MS),
+                  ("gc", 31 * MS, 64 * MS),
+                  ("request", 45 * MS, 80 * MS),  # later than the gc
+                  ("batch", 60 * MS, 69 * MS),
+                  ("batch.count", 61 * MS, 68 * MS)])
+    monkeypatch.setattr(tracing, "RECORDER", ring)
+    trace = _trace([("k", 0, 30 * MS), ("m", 60 * MS, 61 * MS),
+                    ("k", 70 * MS, 92 * MS)])
+    out = breakdown(trace)
+    # gaps 30-60 ms (middle 45), 61-70 (65.5), 92-100 (96)
+    assert out["idle_gaps"] == [["gc", 0.03], ["batch.count", 0.009],
+                                ["no span", 0.008]]
+    assert capsys.readouterr().err == ""
 
 
 def _count(node):
@@ -112,4 +147,8 @@ def test_an_untraced_run_records_the_timeline_its_metrics_read():
         assert records_timeline(spec, name, False) == reads
         assert records_timeline(spec, name, True)
     assert records_timeline(spec, "twotier2m.hot", False)
-    assert not records_timeline(spec, "dense1m.counts", False)
+    assert records_timeline(spec, "dense1m.counts", False)
+    host_only = dict(spec, end_to_end=[m for m in spec["end_to_end"]
+                                       if m["source"] != "device_trace"])
+    assert not records_timeline(host_only, "dense1m.counts", False)
+    assert records_timeline(host_only, "dense1m.counts", True)

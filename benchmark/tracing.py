@@ -1,57 +1,48 @@
-"""What a run with ``--trace 1`` records: the benchmark's own spans around
-calls into the port, the VM launches' queries, the port's performance log,
-and the card's timeline from ``torch.profiler``.
+"""What a run with ``--trace 1`` records: which queries each VM launch
+answered, the port's spans (its performance logger set to INFO turns its
+recorder on, ``lapis_silo_torch.tracing``), and the card's timeline from
+``torch.profiler``; and the breakdown of the card's time and idle gaps,
+the gaps named by the port's spans.
 
-Host spans and the profiler's device events share one clock: Kineto stamps
-both in nanoseconds of the system clock, which ``time.time_ns`` reads.
+The port's spans and the profiler's device events share one clock: Kineto
+stamps both in nanoseconds of the system clock, which ``time.time_ns``
+reads.
 """
 
 from __future__ import annotations
 
 import logging
-import threading
+import sys
 import time
 from collections import defaultdict
 
-# port methods a span wraps, on the engine instance
-ENGINE_SPANS = ("count_programs", "lower_cached", "group_counts",
-                "mutation_counts_many", "evaluate_compact", "device_filter")
+import numpy as np
+
 PERFORMANCE_LOGGER = "lapis_silo_torch.performance"
+# a gap's name where the port's ring lost part of the window
+RING_LOST = "ring lost"
 
 
 class Trace:
     def __init__(self):
-        self.spans: list[tuple[str, int, int]] = []  # name, start, end ns
         # (ns, filter JSON of each query) per count launch
         self.launches: list[tuple[int, list[str]]] = []
-        self.actions: list[tuple[str, float, float]] = []  # kind, filter us, action us
         # id of a lowered program: its filter's JSON. Holding the programs
         # would grow the collector's work for the whole window; an id that a
         # freed program leaves is taken over by the next lowering that gets
         # it, before that program reaches a launch
         self._programs: dict[int, str] = {}
-        self._local = threading.local()
-        self._handler = None
+        self._logger_was = (logging.NOTSET, True)
         self.device_events: list[tuple[str, int, int]] = []
         self.t0_ns = self.t1_ns = 0
         self._profiler = None
 
     # -- host ----------------------------------------------------------------
 
-    def _span(self, name: str, fn):
-        spans = self.spans
-
-        def wrapper(*args, **kwargs):
-            start = time.time_ns()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spans.append((name, start, time.time_ns()))
-        return wrapper
-
     def attach(self, engine) -> None:
-        """Spans around the engine's routes, and which queries each count
-        launch answered (from ``lower_cached`` and ``batch_args``)."""
+        """Note which queries each count launch answered (from
+        ``lower_cached`` and ``batch_args``), and turn the port's span
+        recorder on: its performance logger at INFO."""
         programs = self._programs
         launches = self.launches
         lower_cached = engine.lower_cached
@@ -69,41 +60,18 @@ class Trace:
 
         engine.lower_cached = lower_noting
         engine.batch_args = batch_noting
-        for name in ENGINE_SPANS:
-            setattr(engine, name, self._span(name, getattr(engine, name)))
         logger = logging.getLogger(PERFORMANCE_LOGGER)
-        trace = self
-
-        class Actions(logging.Handler):
-            def emit(self, record):
-                filter_us, action_us = record.args
-                trace.actions.append((getattr(trace._local, "kind", None),
-                                      float(filter_us), float(action_us)))
-
-        self._handler = Actions()
-        logger.addHandler(self._handler)
+        self._logger_was = (logger.level, logger.propagate)
+        # the records themselves go nowhere: the spans are what is read
         logger.setLevel(logging.INFO)
         logger.propagate = False
 
-    def execute(self, execute):
-        """`execute` (of a generator.Request) with a span per request,
-        named by its kind."""
-        local, spans = self._local, self.spans
-
-        def run(request):
-            local.kind = request.kind
-            start = time.time_ns()
-            try:
-                return execute(request)
-            finally:
-                spans.append((f"request:{request.kind}", start,
-                              time.time_ns()))
-        return run
-
     def detach(self, engine) -> None:
-        for name in (*ENGINE_SPANS, "lower_cached", "batch_args"):
+        for name in ("lower_cached", "batch_args"):
             engine.__dict__.pop(name, None)
-        logging.getLogger(PERFORMANCE_LOGGER).removeHandler(self._handler)
+        logger = logging.getLogger(PERFORMANCE_LOGGER)
+        level, logger.propagate = self._logger_was
+        logger.setLevel(level)
 
     # -- device --------------------------------------------------------------
 
@@ -137,10 +105,6 @@ class Trace:
     def in_window(self, at_ns: int) -> bool:
         return self.t0_ns <= at_ns < self.t1_ns
 
-    def window_spans(self, name: str) -> list[tuple[int, int]]:
-        return [(start, end) for span, start, end in self.spans
-                if span == name and self.in_window(start)]
-
 
 def busy(events, t0: int, t1: int) -> list[tuple[int, int]]:
     """The union of the events' intervals inside [t0, t1], merged."""
@@ -173,23 +137,42 @@ def gaps(events, t0: int, t1: int) -> list[tuple[int, int]]:
     return sorted(out, key=lambda g: g[0] - g[1])
 
 
-def open_span(spans, at: int) -> str:
-    """The name of the span open at `at` that started last."""
-    best = None
-    for name, start, end in spans:
-        if start <= at < end and (best is None or start > best[1]):
-            best = (name, start)
-    return best[0] if best else "no span"
+def gap_names(trace: Trace, middles: list[int]) -> list[str]:
+    """The port's span open at each of `middles`: a ``gc`` span (a
+    collector pass) first, else the innermost, the one that started last.
+    Where the port's ring lost part of the window, every gap is
+    ``RING_LOST``, and standard error says so."""
+    from lapis_silo_torch import tracing
+
+    rows = tracing.RECORDER.spans(trace.t0_ns, trace.t1_ns)
+    if rows is None:
+        print("breakdown: the port's ring lost part of the window; idle gaps "
+              f"are named {RING_LOST!r}", file=sys.stderr, flush=True)
+        return [RING_LOST] * len(middles)
+    names, starts, ends = rows["name"], rows["start"], rows["end"]
+    out = []
+    for at in middles:
+        open_ = (starts <= at) & (at < ends)
+        collecting = open_ & (names == tracing.GC)
+        hits = np.flatnonzero(collecting if collecting.any() else open_)
+        if not len(hits):
+            out.append("no span")
+            continue
+        # the latest start; of spans that started together, the first to end
+        pick = max(hits.tolist(), key=lambda i: (starts[i], -ends[i]))
+        out.append(tracing.NAMES[names[pick]])
+    return out
 
 
 def breakdown(trace: Trace, top: int = 10) -> dict:
     """The device operations that took the most time, by name, and the
-    longest idle gaps, each named by the host span open in its middle."""
+    longest idle gaps, each named by the port's span open in its middle
+    (`gap_names`)."""
     by_name: dict[str, float] = defaultdict(float)
     for name, start, end in trace.device_events:
         by_name[name] += (end - start) / 1e9
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    idle = [[open_span(trace.spans, (a + b) // 2), (b - a) / 1e9]
-            for a, b in gaps(trace.device_events, trace.t0_ns,
-                             trace.t1_ns)[:top]]
+    longest = gaps(trace.device_events, trace.t0_ns, trace.t1_ns)[:top]
+    names = gap_names(trace, [(a + b) // 2 for a, b in longest])
+    idle = [[name, (b - a) / 1e9] for name, (a, b) in zip(names, longest)]
     return {"device_ops": [[name, s] for name, s in ops], "idle_gaps": idle}
