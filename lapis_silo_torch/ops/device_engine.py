@@ -588,6 +588,13 @@ class DeviceEngine:
         # lower_cached count in neither
         self.lowered_once = 0
         self.lowered_per_partition = 0
+        # Mutations reductions: queries for which K2 or K3 launched, by
+        # alphabet ("nuc", "aa"), and the rows K2 (dense) and K3 (sparse)
+        # reduced
+        self.mutation_queries = {"nuc": 0, "aa": 0}
+        self.mutation_dense_rows = 0
+        self.mutation_sparse_rows = 0
+        self._mutation_lock = threading.Lock()
 
         # group codes of the GROUP_CODES_CACHED column lists used last
         # (group_codes_for; None: unsupported), least recent first
@@ -1093,17 +1100,18 @@ class DeviceEngine:
             host = self._gather_host(out.words)
         return self._per_partition(host)
 
-    def device_filter(self, filter_expr) -> "DeviceFilter":
+    def device_filter(self, filter_expr, span: int = 0) -> "DeviceFilter":
         """Evaluate the filter and KEEP it on the device, with its total
         from the same VM launch (known on the host for a trivial filter):
-        Mutations needs only device reductions."""
+        Mutations needs only device reductions. `span`: the traced span
+        its reductions record under, or 0."""
         program, _regs = self.lower(filter_expr)
         trivial = self._trivial_words(program)
         if trivial is not None:
             return DeviceFilter(self, trivial,
-                                self._trivial_total(program))
+                                self._trivial_total(program), span)
         out = self._run(self._prepare_program(program), tail=True)
-        return DeviceFilter(self, out.words, out.total)
+        return DeviceFilter(self, out.words, out.total, span)
 
     # -- group-by (Aggregated with groupByFields) -------------------------
 
@@ -1471,16 +1479,17 @@ class DeviceEngine:
         self._filters_memo = (key, list(filter_words), filters)
         return filters
 
-    def _sparse_counts(self, filter_words) -> np.ndarray:
-        """int64[n_sparse]: popcount(row & filter) for every sparse-tier row
-        (all segments): one launch of the sparse-counts kernel per shard
-        over its entry chunk, against the whole filter on its device
-        (memoized per filter, as the reference does)."""
+    def _sparse_counts(self, filter_words) -> tuple[np.ndarray, int]:
+        """(int64[n_sparse], rows launched): popcount(row & filter) for
+        every sparse-tier row (all segments): one launch of the
+        sparse-counts kernel per shard over its entry chunk, against the
+        whole filter on its device (memoized per filter, as the reference
+        does; 0 rows launched where the memo answers)."""
         key = (id(filter_words) if isinstance(filter_words, DeviceFilter)
                else tuple(id(w) for w in filter_words))
         memo = self._sparse_counts_memo
         if memo is not None and memo[0] == key:
-            return memo[2]
+            return memo[2], 0
         filters = self._filters_for(filter_words)
         with self._on_stream():
             whole = {shard: gather_words(filters, shard)
@@ -1490,7 +1499,7 @@ class DeviceEngine:
                 [whole[shard] for shard in self.shards.devices])
             out = counts.cpu().numpy().astype(np.int64)
         self._sparse_counts_memo = (key, filter_words, out)
-        return out
+        return out, self.n_sparse
 
     def mutation_counts(self, kind: str, name: str, filter_words):
         """counts[S, L] for one segment (see mutation_counts_many)."""
@@ -1502,7 +1511,10 @@ class DeviceEngine:
         kernel, sparse rows with one sparse-counts launch over the stream
         for all segments; majority rows reconstruct as |filter| - sum(stored
         counts at pos) (exact under the one-symbol-per-position invariant).
-        Every segment's launch is issued before the first readback."""
+        Every segment's launch is issued before the first readback. A
+        DeviceFilter with a span records ``mutations.reduce`` under it."""
+        span = getattr(filter_words, "span", 0)
+        start = time.time_ns() if span else 0
         if isinstance(filter_words, DeviceFilter):
             filter_total = filter_words.popcount()
         else:
@@ -1529,8 +1541,16 @@ class DeviceEngine:
                         meta["offset"], meta["n_stored"])
                 need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
                 pending.append((name, meta, dev))
-            sparse_all = (self._sparse_counts(filter_words)
-                          if need_sparse and pending else None)
+            sparse_all, sparse_rows = (self._sparse_counts(filter_words)
+                                       if need_sparse and pending
+                                       else (None, 0))
+            dense_rows = sum(meta["n_stored"] for _, meta, dev in pending
+                             if dev is not None)
+            if dense_rows or sparse_rows:
+                with self._mutation_lock:
+                    self.mutation_queries[kind] += 1
+                    self.mutation_dense_rows += dense_rows
+                    self.mutation_sparse_rows += sparse_rows
             for name, meta, dev in pending:
                 length, s_count = meta["length"], meta["s_count"]
                 counts = np.zeros((s_count, length), dtype=np.int64)
@@ -1549,6 +1569,10 @@ class DeviceEngine:
                 counts[meta["majority"], np.arange(length)] = (
                     filter_total - per_pos)
                 results[name] = counts
+        if span:
+            recorder = tracing.RECORDER
+            recorder.record(tracing.MUTATIONS_REDUCE, start, time.time_ns(),
+                            recorder.new_id(), span)
         return results
 
 
@@ -1556,13 +1580,15 @@ class DeviceFilter:
     """A filter result resident on the device: the FLAT global words as
     [PW/D] parts, one per shard, and their total popcount, an int or a 0-d
     tensor on the primary device (the VM launch's, read when first asked).
-    Accepted by mutation_counts in place of host word lists."""
+    Accepted by mutation_counts in place of host word lists. `span`: the
+    traced span its reductions record ``mutations.reduce`` under, or 0."""
 
     def __init__(self, engine: DeviceEngine, parts: list[torch.Tensor],
-                 total: int | torch.Tensor):
+                 total: int | torch.Tensor, span: int = 0):
         self.engine = engine
         self.parts = parts
         self._total = total
+        self.span = span
 
     def popcount(self) -> int:
         if not isinstance(self._total, int):

@@ -110,12 +110,21 @@ class QueryEngine:
         fast = self._try_fast_count(query, span, t0)
         if fast is not None:
             return fast
-        bitmaps = self._device_filter_for_mutations(query)
+        # a traced Mutations request on the device: its filter, and its
+        # action with the reduction under it (the reduction's span rides
+        # the DeviceFilter, as a count's rides its batcher item)
+        bitmaps = self._device_filter_for_mutations(query, span)
+        acting = bitmaps.span if bitmaps is not None else 0
         if bitmaps is None:
             bitmaps = self._evaluate_filter(query)
         t1 = time.time_ns()
         rows = query.action.execute_and_order(self.database, bitmaps)
         t2 = time.time_ns()
+        if acting:
+            recorder = tracing.RECORDER
+            recorder.record(tracing.MUTATIONS_FILTER, t0, t1,
+                            recorder.new_id(), span)
+            recorder.record(tracing.MUTATIONS_ASSEMBLE, t1, t2, acting, span)
         performance_logger.info(
             "filter time [microseconds]: %d, action time [microseconds]: %d",
             (t1 - t0) // 1000,
@@ -123,13 +132,16 @@ class QueryEngine:
         )
         return {"queryResult": rows}
 
-    def _device_filter_for_mutations(self, query: Query):
+    def _device_filter_for_mutations(self, query: Query, span: int = 0):
         """Mutations keeps its filter on the device (a DeviceFilter): it
-        needs only device reductions."""
+        needs only device reductions. With `span` (the traced request) the
+        DeviceFilter carries the id of the request's ``mutations.assemble``
+        span, under which its reductions record ``mutations.reduce``."""
         if not (self._use_device and isinstance(query.action, Mutations)):
             return None
         try:
-            return self._device_engine.device_filter(query.filter)
+            return self._device_engine.device_filter(
+                query.filter, tracing.RECORDER.new_id() if span else 0)
         except _HOST_FALLBACK:
             return None
 

@@ -1,11 +1,17 @@
-"""Spans of the count path, recorded where the work happens.
+"""Spans of the count path and of Mutations, recorded where the work
+happens.
 
 The switch is the performance logger: spans are recorded exactly while
 ``lapis_silo_torch.performance`` is enabled for INFO (the CLI's
 performance log at ``SPDLOG_LEVEL=info``, its default). ``QueryEngine``
 asks ``enabled()`` once as a request enters and the micro-batcher once per
 batch; with the switch off no other code of this module runs, and no
-collector callback is installed. Spans go to ``RECORDER``.
+collector callback is installed. Spans go to ``RECORDER``. A traced
+Mutations request on the device records under its ``request``
+``mutations.filter`` (the device filter: its lowering and VM launch) and
+``mutations.assemble`` (the action: the rows on the host and their
+order), and under the latter ``mutations.reduce``
+(``mutation_counts_many``: K2, K3, their read-backs and the majority).
 
 A span is a row of seven integers (``COLUMNS``) in preallocated arrays
 used as a ring: no Python object per span, so the recorder does not add
@@ -32,9 +38,11 @@ import numpy as np
 
 NAMES = ("request", "parse", "batcher.enqueue", "batcher.wait",
          "batcher.wake", "batch", "batch.lower", "batch.count",
-         "batch.readback", "gc")
+         "batch.readback", "gc", "mutations.filter", "mutations.reduce",
+         "mutations.assemble")
 (REQUEST, PARSE, BATCHER_ENQUEUE, BATCHER_WAIT, BATCHER_WAKE, BATCH,
- BATCH_LOWER, BATCH_COUNT, BATCH_READBACK, GC) = range(len(NAMES))
+ BATCH_LOWER, BATCH_COUNT, BATCH_READBACK, GC, MUTATIONS_FILTER,
+ MUTATIONS_REDUCE, MUTATIONS_ASSEMBLE) = range(len(NAMES))
 COLUMNS = ("name", "start", "end", "thread", "id", "parent", "n")
 
 # five rows a count (request, parse, batcher.enqueue, batcher.wait,

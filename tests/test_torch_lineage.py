@@ -1,0 +1,230 @@
+"""The port on a lineage-partitioned corpus (``benchmark/lineage.py``: a
+seeded Pango tree, the nucleotide segment and all 12 genes at reduced
+lengths, 8 lineage partitions) against the plain reference
+(``benchmark/reference/lineage.py``): nucleotide and amino-acid Mutations
+under PangoLineage and DateBetween through ``Database.execute_query``, on
+the dense bank, on the two-tier bank and on the host path; and the
+Mutations spans and counters of ``lapis_silo_torch.tracing`` and the
+device engine."""
+
+import json
+import logging
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lapis_silo_torch
+from benchmark import lineage
+from benchmark.reference.compare import agrees
+from lapis_silo_torch import tracing
+from lapis_silo_torch.ops.device_engine import DeviceEngine
+from lapis_silo_torch.query.engine import Query, QueryEngine
+
+CPU = torch.device("cpu")
+FOREVER = (0, 2 ** 63 - 1)
+SEED = 2 ** 31 + 21
+
+
+def _config() -> dict:
+    config = json.loads((Path(lineage.__file__).parent / "configs"
+                         / "lineage1m.json").read_text())
+    config.update(
+        n_sequences=3000, max_partitions=8,
+        nucleotide_segments={"main": 1500},
+        genes={name: max(8, length // 25)
+               for name, length in config["genes"].items()})
+    config["lineages"] = dict(config["lineages"], count=160)
+    return config
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    return lineage.draw_for(_config(), SEED)
+
+
+@pytest.fixture(scope="module")
+def reference(corpus):
+    return lineage.reference_for(corpus)
+
+
+@pytest.fixture(scope="module")
+def served(corpus):
+    """The corpus served three ways: the dense bank, the two-tier bank
+    (every row of a flat word or more sparse where no partition holds it as
+    its majority) and the host alone."""
+    out = {}
+    db = lineage.build_database(corpus)
+    lapis_silo_torch.install(db, CPU)
+    out["dense"] = db
+    db = lineage.build_database(corpus)
+    engine = DeviceEngine(db, CPU, sparse_min_words=1)
+    db.device_engine = engine
+    db._engine = QueryEngine(db, engine)
+    out["two_tier"] = db
+    db = lineage.build_database(corpus)
+    db.device_engine = None
+    db._engine = QueryEngine(db, None, use_device=False)
+    out["host"] = db
+    return out
+
+
+def _majority_lineage(corpus) -> int:
+    """A lineage of a partition whose implicit symbol differs from the
+    reference's at some position of main: one whose own path makes it."""
+    main = corpus.segment("main")
+    for p in range(corpus.n_partitions):
+        rows = lineage.stored_rows(corpus, p, main)
+        moved = np.flatnonzero(rows.majority != main.reference)
+        if len(moved):
+            lo, hi = corpus.bounds[p], corpus.bounds[p + 1]
+            values, counts = np.unique(corpus.lineage[lo:hi],
+                                       return_counts=True)
+            return int(values[np.argmax(counts)])
+    raise AssertionError("no partition holds another majority")
+
+
+def _filter(corpus, case: str) -> dict:
+    tree = corpus.tree
+    aliased = next(i for i, name in enumerate(tree.names)
+                   if name != tree.unaliased[i]
+                   and corpus.lineage.tolist().count(i) > 3)
+    first, last = corpus.date_text(0), corpus.date_text(corpus.n_days - 1)
+    value, sub = tree.names[aliased], True
+    if case == "unaliased":
+        value = tree.unaliased[aliased]
+    elif case == "exact":
+        sub = False
+    elif case == "majority":
+        value = tree.names[_majority_lineage(corpus)]
+    newest = int(corpus.day.max())
+    if case == "newest":
+        value = "B"
+        first, last = corpus.date_text(newest - 90), corpus.date_text(newest)
+    return {"type": "And", "children": [
+        {"type": "PangoLineage", "column": "pangoLineage", "value": value,
+         "includeSublineages": sub},
+        {"type": "DateBetween", "column": "date", "from": first,
+         "to": last}]}
+
+
+def _query(action: str, proportion: float, expression: dict) -> str:
+    return json.dumps({"action": {"type": action,
+                                  "minProportion": proportion},
+                       "filterExpression": expression})
+
+
+def test_the_corpus_has_partition_majorities_aliases_and_both_tiers(
+        corpus, served):
+    main = corpus.segment("main")
+    moved = [p for p in range(corpus.n_partitions)
+             if (lineage.stored_rows(corpus, p, main).majority
+                 != main.reference).any()]
+    assert moved
+    assert corpus.n_partitions == 8 and corpus.tree.alias_key
+    engine = served["two_tier"].device_engine
+    assert engine.n_rows > 1 and engine.n_sparse > 0
+    assert served["dense"].device_engine.n_sparse == 0
+
+
+@pytest.mark.parametrize("case", ["aliased", "unaliased", "exact", "newest",
+                                  "majority"])
+@pytest.mark.parametrize("proportion", [0, 0.05, 1])
+@pytest.mark.parametrize("action", ["Mutations", "AminoAcidMutations"])
+@pytest.mark.parametrize("path", ["dense", "two_tier", "host"])
+def test_mutations_equal_the_reference(corpus, reference, served, path,
+                                       action, proportion, case):
+    query = _query(action, proportion, _filter(corpus, case))
+    want = reference.answer(query)
+    assert want or proportion == 1, query
+    got = served[path].execute_query(query)
+    assert agrees(reference, query, got), (query, got["queryResult"][:5],
+                                          want[:5])
+
+
+# -- spans and counters ----------------------------------------------------------
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh ring in place of the module's, and the performance logger
+    as it was afterwards."""
+    ring = tracing.Recorder(1 << 12)
+    monkeypatch.setattr(tracing, "RECORDER", ring)
+    logger = tracing.PERFORMANCE_LOGGER
+    level = logger.level
+    yield ring
+    logger.setLevel(level)
+    ring.collect(False)
+
+
+def _by_name(rows, name):
+    return {k: v[rows["name"] == tracing.NAMES.index(name)]
+            for k, v in rows.items()}
+
+
+@pytest.mark.parametrize("action,kind", [("Mutations", "nuc"),
+                                         ("AminoAcidMutations", "aa")])
+def test_a_traced_mutations_query_records_its_spans_and_counters(
+        corpus, served, recorder, action, kind):
+    db = served["two_tier"]
+    engine = db.device_engine
+    query = _query(action, 0.05, _filter(corpus, "aliased"))
+    before = (dict(engine.mutation_queries), engine.mutation_dense_rows,
+              engine.mutation_sparse_rows)
+    tracing.PERFORMANCE_LOGGER.setLevel(logging.INFO)
+    db.execute_query(query)
+    rows = recorder.spans(*FOREVER)
+    (request,) = _by_name(rows, "request")["id"]
+    filt, reduce_, assemble = (_by_name(rows, name) for name in (
+        "mutations.filter", "mutations.reduce", "mutations.assemble"))
+    for spans in (filt, reduce_, assemble):
+        assert len(spans["id"]) == 1
+        assert spans["end"][0] >= spans["start"][0]
+    # the filter and the action under the request, the reduction under the
+    # action and inside it
+    assert filt["parent"][0] == assemble["parent"][0] == request
+    assert reduce_["parent"][0] == assemble["id"][0]
+    assert filt["end"][0] <= assemble["start"][0] <= reduce_["start"][0]
+    assert reduce_["end"][0] <= assemble["end"][0]
+    dense = sum(meta["n_stored"] for (k, _), meta
+                in engine.segment_meta.items() if k == kind)
+    assert engine.mutation_queries[kind] == before[0][kind] + 1
+    assert engine.mutation_dense_rows == before[1] + dense
+    assert engine.mutation_sparse_rows == before[2] + engine.n_sparse
+
+
+def test_the_counters_advance_only_by_the_kernels_launched(corpus, served):
+    """A second reduction against the same filter takes K3's counts from
+    its memo: K2 launches again and counts, K3 does not."""
+    db = served["two_tier"]
+    engine = db.device_engine
+    filt = engine.device_filter(Query(_query(
+        "AminoAcidMutations", 0.05, _filter(corpus, "aliased"))).filter)
+    names = sorted(db.aa_sequences)
+    engine.mutation_counts_many("aa", names, filt)
+    before = (engine.mutation_queries["aa"], engine.mutation_dense_rows,
+              engine.mutation_sparse_rows)
+    engine.mutation_counts_many("aa", names, filt)
+    dense = sum(meta["n_stored"] for (k, _), meta
+                in engine.segment_meta.items() if k == "aa")
+    assert dense
+    assert engine.mutation_queries["aa"] == before[0] + 1
+    assert engine.mutation_dense_rows == before[1] + dense
+    assert engine.mutation_sparse_rows == before[2]
+
+
+def test_untraced_mutations_record_nothing_and_counts_keep_their_spans(
+        corpus, served, recorder):
+    db = served["dense"]
+    tracing.PERFORMANCE_LOGGER.setLevel(logging.WARNING)
+    db.execute_query(_query("Mutations", 0.05, _filter(corpus, "aliased")))
+    assert len(recorder.spans(*FOREVER)["id"]) == 0
+    tracing.PERFORMANCE_LOGGER.setLevel(logging.INFO)
+    db.execute_query(json.dumps({"action": {"type": "Aggregated"},
+                                 "filterExpression": _filter(corpus,
+                                                             "aliased")}))
+    names = {tracing.NAMES[i] for i in recorder.spans(*FOREVER)["name"]}
+    assert names - {"gc"} == {"request", "parse", "batcher.enqueue",
+                              "batcher.wait", "batcher.wake", "batch",
+                              "batch.lower", "batch.count", "batch.readback"}
