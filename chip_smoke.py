@@ -7,6 +7,7 @@ on the card.
 
     python3 chip_smoke.py           # every phase, on one card or more
     python3 chip_smoke.py --pod     # phases 8c and 8d alone (four cards)
+    python3 chip_smoke.py --k3      # phase 3's K3 checks and 3k alone
 
 Phases, one line each or more (the last line is the JSON verdict):
   1. environment: torch/CUDA versions, the card's name and power limit;
@@ -928,6 +929,124 @@ def random_stream(rng, n_leaves: int, n_parts: int, part_words: int,
             starts.astype(np.int32), lens.astype(np.int32))
 
 
+def k3_random(kernels, rng, dev, stream, part_words: int) -> int:
+    """K3 against its plain version on a random stream (host arrays, as
+    random_stream gives them) with its rows cut into two alphabets, for a
+    random filter and one that is zero in every other partition: the
+    largest error."""
+    idx, words, starts, lens = stream
+    n_leaves, n_parts = lens.shape
+    row_bounds = [0, n_leaves // 2, n_leaves]
+    segments = kernels.sparse_segments(starts, lens, row_bounds)
+    filters = rng.integers(0, 1 << 32, size=(2, n_parts, part_words),
+                           dtype=np.uint32)
+    filters[1, ::2] = 0
+    worst = 0
+    for filt in filters:
+        for alphabet in (0, 1):
+            args = (dev(idx), dev(words), dev(filt.reshape(-1)),
+                    *k3_work(kernels, dev, segments, alphabet), part_words,
+                    row_bounds[alphabet],
+                    row_bounds[alphabet + 1] - row_bounds[alphabet])
+            worst = max(worst, max_abs_err(kernels.sparse_counts(*args),
+                                           kernels.sparse_counts_plain(*args)))
+    return worst
+
+
+def k3_work(kernels, dev, segments, alphabet: int) -> tuple:
+    """K3's segment list and its grid for one alphabet, on the card."""
+    return (dev(segments.rows.astype(np.int32)),
+            dev(segments.starts.astype(np.int32)),
+            dev(kernels.sparse_blocks(segments, alphabet)))
+
+
+def k3_lineage_shapes(kernels, torch, device, scale: float = 1) -> dict:
+    """K3 at the lineage cell's shapes (lineage1m at 524,288 genomes, as
+    counted on the CPU from its seed 4270000001): 29 partitions of 1,000
+    words, 120,167 nucleotide and 184,980 amino-acid sparse rows (times
+    `scale`), their non-empty (row, partition) segments about a third of
+    the pairs with about 4.5 entries each, a few hundred in the longest
+    (12.7 M entries). Filters of random words in 8 partitions (a request's
+    median) and in all 29; each alphabet's launch against its plain
+    version, bit-exact with the entries read, and timed (CUDA events over
+    repeated launches, so the stream is warm in L2; the zero fill of its
+    output included).
+    Returns {(filter, alphabet): (ms, plain ms, bytes, entries read)}; the
+    bytes are the entries read and their pieces at 8 each and the counts
+    written."""
+    rng = np.random.default_rng(4270000001)
+    n_parts, part_words = 29, 1000
+    n_nuc, n_aa = int(120167 * scale), int(184980 * scale)
+    row_bounds = [0, n_nuc, n_nuc + n_aa]
+    n_rows = row_bounds[-1]
+    # segment lengths as lineage1m's (its engine at seed 4282000011:
+    # median 2, 99th percentile 16, 0.47% over 32 entries holding 15% of
+    # them, up to 670)
+    lens = np.minimum(rng.geometric(0.35, size=(n_rows, n_parts)), 32)
+    tail = rng.random((n_rows, n_parts)) < 0.0047
+    lens[tail] = np.exp(rng.uniform(np.log(33), np.log(671),
+                                    size=int(tail.sum()))).astype(np.int64)
+    lens *= rng.random((n_rows, n_parts)) < 0.32
+    counts = lens.T.reshape(-1)  # partition-major
+    starts = np.zeros(len(counts), dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    n_entries = int(counts.sum())
+    # each segment's distinct words, ascending: up to 12 entries a base
+    # under 100 and steps of 1-74, longer ones drawn whole
+    seg_of = np.repeat(np.arange(len(counts)), counts)
+    steps = rng.integers(1, 75, size=n_entries)
+    total = np.cumsum(steps)
+    first = starts[seg_of]
+    local = (rng.integers(0, 100, size=len(counts))[seg_of]
+             + total - total[first] + steps[first] - 1)
+    for s in np.flatnonzero(counts > 12):
+        local[starts[s]:starts[s] + counts[s]] = np.sort(rng.choice(
+            part_words, size=counts[s], replace=False))
+    idx = ((seg_of // n_rows) * part_words + local).astype(np.int32)
+    words = rng.integers(1, 1 << 32, size=n_entries, dtype=np.uint32)
+    segments = kernels.sparse_segments(starts.reshape(n_parts, n_rows).T,
+                                          lens, row_bounds)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            device)
+
+    stream = (dev(idx), dev(words))
+    out = {}
+    for label, reached in (("8 partitions", rng.permutation(n_parts)[:8]),
+                           ("29 partitions", np.arange(n_parts))):
+        filt = np.zeros((n_parts, part_words), dtype=np.uint32)
+        filt[reached] = rng.integers(0, 1 << 32, size=(len(reached),
+                                                       part_words),
+                                     dtype=np.uint32)
+        filt = dev(filt.reshape(-1))
+        for alphabet, kind in enumerate(("nuc", "aa")):
+            base = row_bounds[alphabet]
+            size = row_bounds[alphabet + 1] - base
+            args = (*stream, filt, *k3_work(kernels, dev, segments, alphabet),
+                    part_words, base, size)
+            got = kernels.sparse_counts(*args)
+            want = kernels.sparse_counts_plain(*args)
+            assert max_abs_err(got, want) == 0, (label, kind)
+            read = int(got[-1])
+            assert read == int(lens[base:base + size][:, reached].sum())
+            n_pieces = int((-(-lens[base:base + size][:, reached]
+                              // kernels.SPARSE_PIECE_ENTRIES)).sum())
+            out[(label, kind)] = (
+                cuda_ms(lambda: kernels.sparse_counts(*args), reps=50),
+                cuda_ms(lambda: kernels.sparse_counts_plain(*args), reps=2,
+                        warmup=1),
+                8 * read + 8 * n_pieces + 4 * (size + 1), read)
+    log("3k K3", f"lineage shapes, {n_entries} entries in "
+        f"{len(segments.rows)} pieces of {n_rows} rows over {n_parts} "
+        f"partitions, bit-exact: " + "; ".join(
+            f"{kind} in {label}: {read} entries read, kernel {ms:.4f} ms "
+            f"(bound {bound(n_bytes, read)[0]:.4f} ms, {n_bytes / 1e6:.2f} "
+            f"MB), plain {plain:.2f} ms"
+            for (label, kind), (ms, plain, n_bytes, read) in out.items()))
+    return out
+
+
 def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     """Every kernel against its plain version on random inputs: for the VM
     every mode and b-source, n_regs 4/8/16/32, clamped operands, the NOP
@@ -1013,13 +1132,12 @@ def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
             (1, 1, 131, 1, 300), (37, 3, 2045, 37, 300),
             (1024, 8, 64, 1500, 12), (4096, 8, 16, 4096, 12),
             (9, 3, 10007, 11, 9000), (64, 1, 4000, 70, 3000)):
-        idx, words, starts, lens = (dev(a) for a in random_stream(
-            rng, n_leaves, n_parts, part_words, max_len))
+        stream = random_stream(rng, n_leaves, n_parts, part_words, max_len)
+        idx, words, starts, lens = (dev(a) for a in stream)
         pw = n_parts * part_words
         filt = dev(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32))
-        err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
-            kernels.sparse_counts(idx, words, filt, starts, lens),
-            kernels.sparse_counts_plain(idx, words, filt, starts, lens)))
+        err["sparse_counts"] = max(err["sparse_counts"], k3_random(
+            kernels, rng, dev, stream, part_words))
         # the whole row, the windows of 3 word shards (their edges fall
         # inside partitions), and one at an odd offset
         for window, w_off in ((pw, 0), *((pw // 3, d * (pw // 3))
@@ -1226,20 +1344,30 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
     timings = {}
     filt = rng.integers(0, 1 << 32, size=pw, dtype=np.uint32).view(np.int32)
     filters = [torch.from_numpy(filt).to(d) for d in shards.devices]
-    chunks = engine._sparse_chunks
+    # K3 per alphabet with rows (the synthetic corpora have nucleotides
+    # only), the random filter reaching every partition
+    k3_kind = max(engine._sparse_alphabets,
+                  key=lambda kind: engine._sparse_alphabets[kind][2])
+    chunks = [(*chunk[:4], chunk[4][k3_kind])
+              for chunk in engine._sparse_chunks]
+    _, k3_base, k3_rows = engine._sparse_alphabets[k3_kind]
+    k3_args = (engine.n_words, k3_base, k3_rows)
 
     def plain_chunked():
-        return reduce_sum([kernels.sparse_counts_plain(idx, words, f, *bounds)
-                           for (idx, words, *bounds), f in zip(chunks, filters)],
+        return reduce_sum([kernels.sparse_counts_plain(idx, words, f, *work,
+                                                       *k3_args)
+                           for (idx, words, *work), f in zip(chunks, filters)],
                           shards.devices[0])
+    k3_got = kernels.sparse_counts_chunked(chunks, filters, *k3_args)
     err["sparse_counts"] = max(err["sparse_counts"], max_abs_err(
-        kernels.sparse_counts_chunked(chunks, filters), plain_chunked()))
+        k3_got, plain_chunked()))
+    k3_read = int(k3_got[-1])
     timings["sparse_counts"] = (
-        cuda_ms(lambda: kernels.sparse_counts_chunked(chunks, filters),
-                reps=20),
+        cuda_ms(lambda: kernels.sparse_counts_chunked(chunks, filters,
+                                                      *k3_args), reps=20),
         cuda_ms(plain_chunked, reps=2, warmup=1),
-        *stream_work(engine.sparse_starts_pp, engine.sparse_lengths_pp,
-                     engine.n_sparse, pw))
+        8 * k3_read + 8 * sum(c[2].shape[0] for c in chunks)
+        + 4 * (k3_rows + 1), k3_read)
 
     def shard_inputs(bounds, slots=None):
         """Per shard: (idx, words, starts, lens[, slots]) on its device."""
@@ -1310,8 +1438,8 @@ def two_tier_kernels(engine, kernels, torch, err: dict, label: str) -> dict:
     log(f"{label} kernels", f"two-tier shapes on {len(shards)} shard(s) of "
         f"{shards.local_words} words bit-exact, max_abs_err "
         f"{ {k: err[k] for k in timings} }; sparse_counts "
-        f"{engine.n_sparse} leaves x {engine.n_partitions} segments over "
-        f"{n_entries} entries ({8 * n_entries / 1e9:.3f} GB) in "
+        f"{k3_rows} {k3_kind} rows over {k3_read} of {n_entries} entries "
+        f"({8 * n_entries / 1e9:.3f} GB) in "
         f"{len(chunks)} chunk(s): kernel {timings['sparse_counts'][0]:.4f} ms, "
         f"plain {timings['sparse_counts'][1]:.2f} ms; densify_rows "
         f"{engine.max_sparse_k} leaves into each window: kernel "
@@ -2598,6 +2726,24 @@ def main() -> int:
               if "registers" in line or "Compiling entry" in line]
     log("2 build", f"{time.perf_counter() - t0:.1f} s for "
         f"{library.relative_to(ROOT)}; ptxas: {' | '.join(report)}")
+    if sys.argv[1:] == ["--k3"]:
+        rng = np.random.default_rng(0)
+        worst = 0
+        for n_leaves, n_parts, part_words, max_len in (
+                (1, 1, 131, 300), (37, 3, 2045, 300), (1024, 8, 64, 12),
+                (4096, 8, 16, 12), (9, 3, 10007, 9000)):
+            worst = max(worst, k3_random(kernels, rng, lambda a: torch.from_numpy(
+                np.ascontiguousarray(a).view(np.int32)).to(device),
+                random_stream(rng, n_leaves, n_parts, part_words, max_len),
+                part_words))
+        log("3 kernels", f"K3 on random inputs: max_abs_err {worst}")
+        assert worst == 0
+        k3_lineage_shapes(kernels, torch, device)
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--pod"]:
         pod_only(main_path, kernels, torch)
         print(nvidia_smi())
@@ -2623,6 +2769,7 @@ def main() -> int:
     err = phase3_random(kernels, vm, torch, device)
     log("3 kernels", f"random inputs bit-exact against the plain versions: "
         f"max_abs_err {err}")
+    k3_lineage_shapes(kernels, torch, device)
     wide = sample_count_queries(db, 512, seed=7)
     lowered = [engine.lower(Query(q).filter)[0] for q in wide]
     on_device = [p for p in lowered

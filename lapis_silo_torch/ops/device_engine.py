@@ -31,10 +31,11 @@ watcher and the fast path):
   of the hot-leaf pool ``[C + 1, PW]`` (an SLRU cache of leaf rows) and the
   VM reads the pool; without the pool, or on the cold-sweep bypass, the
   leaves are densified into a ``[K, PW]`` block the VM reads instead.
-- Mutations reduces popcount(row & filter) for every dense row with the
-  Mutations kernel and for every sparse leaf over the stream with the
-  sparse-counts kernel; majority rows reconstruct as |filter| minus the
-  stored counts at their position.
+- Mutations reduces popcount(row & filter) for every dense row of the
+  query's segments with the Mutations kernel, and for every sparse row of
+  its alphabet with the sparse-counts kernel, which reads the stream's
+  segments only in the partitions where the filter has a set bit; majority
+  rows reconstruct as |filter| minus the stored counts at their position.
 
 The engine launches on the device's default stream, whichever thread calls
 (the micro-batcher's or a caller's): a pool update may overwrite a slot that
@@ -73,7 +74,7 @@ from ..parallel.shards import (
     ShardLayout, gather_words, resolve, split_words,
 )
 from . import bitset, kernels, lowering
-from .reductions import clip_bounds, entry_chunks
+from .reductions import clip_segments, entry_chunks
 from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
     M_MOVB, M_OR, M_XOR, MAX_BATCH_QUERIES, NO_DST, SERVE_LEN_BUCKET,
@@ -189,13 +190,16 @@ def _sparse_stream(partitions, segments, segment_meta, n_sparse: int,
 
 
 def _check_stream(idx: np.ndarray, starts: np.ndarray,
-                  lens: np.ndarray) -> None:
+                  lens: np.ndarray, n_words: int | None = None) -> None:
     """The densify kernels' contract (csrc/densify.cu): within every (leaf,
     partition) segment the word indices strictly ascend. `_sparse_stream`
     keeps it by construction (the row stores give each row's words in
     ascending order: np.nonzero over a dense row, CsrRowStore.from_coo's
     lexsort). One vectorised pass: a step of the stream that does not ascend
-    may only fall between two segments; ValueError otherwise."""
+    may only fall between two segments; ValueError otherwise. With
+    `n_words`, the sparse-counts kernel's: partition p's segments index only
+    its own words [p * n_words, (p + 1) * n_words), so a partition where
+    the filter has no set bit holds nothing that counts."""
     falls = np.flatnonzero(idx[1:] <= idx[:-1]) + 1
     starts = np.asarray(starts, dtype=np.int64).reshape(-1)
     ends = np.minimum(starts + np.asarray(lens, dtype=np.int64).reshape(-1),
@@ -207,6 +211,19 @@ def _check_stream(idx: np.ndarray, starts: np.ndarray,
     if bad.size:
         raise ValueError(f"{bad.size} stream segments do not strictly ascend "
                          f"(first: flat segment {int(bad[0])})")
+    if n_words is None:
+        return
+    ends = ends.reshape(np.shape(lens))
+    starts = starts.reshape(np.shape(lens))
+    for p in range(ends.shape[1]):
+        live = ends[:, p] > starts[:, p]
+        if not live.any():
+            continue
+        # partition-major: the partition's entries are one range
+        words = idx[starts[live, p].min():ends[live, p].max()]
+        if words.min() < p * n_words or words.max() >= (p + 1) * n_words:
+            raise ValueError(f"partition {p}'s stream segments index words "
+                             f"outside [{p * n_words}, {(p + 1) * n_words})")
 
 
 def build_state(database, device: torch.device,
@@ -326,7 +343,7 @@ def build_state(database, device: torch.device,
     if n_sparse:
         idx, words, starts_pp, lens_pp = _sparse_stream(
             partitions, segments, segment_meta, n_sparse, n_words)
-        _check_stream(idx, starts_pp, lens_pp)
+        _check_stream(idx, starts_pp, lens_pp, n_words)
         state.sparse_idx = to_device(idx, layout.devices[0])
         state.sparse_words = to_device(words, layout.devices[0])
         state.sparse_starts_pp, state.sparse_lengths_pp = starts_pp, lens_pp
@@ -364,7 +381,8 @@ def state_from_reference(bank, full_masks, segment_meta, device: torch.device,
     n_live = int(lens.sum())
     groups = np.asarray(sparse_stream, dtype=np.uint32).reshape(-1, 2, 8, 128)
     idx = groups[:, 0].reshape(-1)[:n_live]
-    _check_stream(idx, starts, lens)
+    _check_stream(idx, starts, lens, bank.reshape(bank.shape[0], -1).shape[1]
+                  // lens.shape[1])
     state.sparse_idx = to_device(idx, device)
     state.sparse_words = to_device(groups[:, 1].reshape(-1)[:n_live], device)
     state.sparse_starts_pp, state.sparse_lengths_pp = starts, lens
@@ -529,12 +547,31 @@ class DeviceEngine:
                     meta["sparse_base"]: meta["sparse_base"] + n_seg_sparse
                 ] = meta["totals"][meta["sparse_sym_ids"],
                                    meta["sparse_pos_ids"]]
-        # the Mutations reduction's stream chunks, resident: (idx, words,
-        # starts, lens) per shard. The shards split the stream's entries,
-        # each chunk's bounds clipped to it (reductions.py:99-146); one
+        # the sparse Mutations reduction's work, resident. Each alphabet
+        # owns a contiguous range of sparse rows, {kind: (its index,
+        # row_base, n_rows)}. The shards split the stream's entries
+        # (reductions.py:99-146), each shard holding its chunk with the
+        # non-empty (row, partition) segments inside it and K3's grid for
+        # each alphabet: (idx, words, rows, starts, {kind: blocks}). One
         # device's chunk is the whole stream
+        self._sparse_alphabets: dict[str, tuple[int, int, int]] = {}
         self._sparse_chunks: list[tuple] = []
         if self.n_sparse:
+            row_bounds = [0]
+            for kind in ("nuc", "aa"):
+                metas = [meta for (k, _), meta in self.segment_meta.items()
+                         if k == kind and len(meta["sparse_sym_ids"])]
+                n_kind = sum(len(meta["sparse_sym_ids"]) for meta in metas)
+                if any(not row_bounds[-1] <= meta["sparse_base"]
+                       <= row_bounds[-1] + n_kind - len(meta["sparse_sym_ids"])
+                       for meta in metas):
+                    raise ValueError(f"the {kind} sparse rows are not one "
+                                     f"range after the previous alphabet's")
+                self._sparse_alphabets[kind] = (len(row_bounds) - 1,
+                                                row_bounds[-1], n_kind)
+                row_bounds.append(row_bounds[-1] + n_kind)
+            segments = kernels.sparse_segments(
+                self.sparse_starts_pp, self.sparse_lengths_pp, row_bounds)
             for shard, (lo, hi) in zip(self.shards.devices, entry_chunks(
                     self.sparse_idx.shape[0], len(self.shards))):
                 if hi - lo > _INT32_MAX:  # K3 takes chunk offsets as int32
@@ -542,10 +579,15 @@ class DeviceEngine:
                                      f"exceeds int32: shard the words over "
                                      f"more devices")
                 idx, words = self._stream_on[shard]
-                self._sparse_chunks.append((idx[lo:hi], words[lo:hi], *(
-                    torch.from_numpy(a.astype(np.int32)).to(shard)
-                    for a in clip_bounds(self.sparse_starts_pp,
-                                         self.sparse_lengths_pp, lo, hi))))
+                chunk = clip_segments(segments, lo, hi)
+                self._sparse_chunks.append((
+                    idx[lo:hi], words[lo:hi],
+                    *(torch.from_numpy(a.astype(np.int32)).to(shard)
+                      for a in (chunk.rows, chunk.starts)),
+                    {kind: torch.from_numpy(kernels.sparse_blocks(
+                        chunk, alphabet)).to(shard)
+                     for kind, (alphabet, _, _)
+                     in self._sparse_alphabets.items()}))
         self._sparse_counts_memo: tuple | None = None
 
         # the reference's caps (device_engine.py:424-431, 560-564): the
@@ -589,11 +631,14 @@ class DeviceEngine:
         self.lowered_once = 0
         self.lowered_per_partition = 0
         # Mutations reductions: queries for which K2 or K3 launched, by
-        # alphabet ("nuc", "aa"), and the rows K2 (dense) and K3 (sparse)
-        # reduced
+        # alphabet ("nuc", "aa"), the rows K2 (dense) and K3 (sparse, its
+        # alphabet's) reduced, K3's reductions (one launch per shard each)
+        # and the stream entries they read
         self.mutation_queries = {"nuc": 0, "aa": 0}
         self.mutation_dense_rows = 0
         self.mutation_sparse_rows = 0
+        self.mutation_sparse_launches = 0
+        self.mutation_sparse_entries_read = 0
         self._mutation_lock = threading.Lock()
 
         # group codes of the GROUP_CODES_CACHED column lists used last
@@ -1479,27 +1524,32 @@ class DeviceEngine:
         self._filters_memo = (key, list(filter_words), filters)
         return filters
 
-    def _sparse_counts(self, filter_words) -> tuple[np.ndarray, int]:
-        """(int64[n_sparse], rows launched): popcount(row & filter) for
-        every sparse-tier row (all segments): one launch of the
-        sparse-counts kernel per shard over its entry chunk, against the
-        whole filter on its device (memoized per filter, as the reference
-        does; 0 rows launched where the memo answers)."""
-        key = (id(filter_words) if isinstance(filter_words, DeviceFilter)
+    def _sparse_counts(self, filter_words,
+                       kind: str) -> tuple[np.ndarray, int, int]:
+        """(int64 counts of the alphabet's sparse rows, from its row_base
+        on; rows launched; entries read): popcount(row & filter) for every
+        sparse-tier row of `kind`: one launch of the sparse-counts kernel
+        per shard over its entry chunk, against the whole filter on its
+        device, reading only the partitions where the filter has a set bit.
+        Memoized per filter and alphabet, as the reference memoizes per
+        filter; (counts, 0, 0) where the memo answers."""
+        key = (kind, id(filter_words) if isinstance(filter_words, DeviceFilter)
                else tuple(id(w) for w in filter_words))
         memo = self._sparse_counts_memo
         if memo is not None and memo[0] == key:
-            return memo[2], 0
+            return memo[2], 0, 0
+        _, row_base, n_rows = self._sparse_alphabets[kind]
         filters = self._filters_for(filter_words)
         with self._on_stream():
             whole = {shard: gather_words(filters, shard)
                      for shard in self.shards.distinct}
             counts = kernels.sparse_counts_chunked(
-                self._sparse_chunks,
-                [whole[shard] for shard in self.shards.devices])
-            out = counts.cpu().numpy().astype(np.int64)
+                [(*chunk[:4], chunk[4][kind]) for chunk in self._sparse_chunks],
+                [whole[shard] for shard in self.shards.devices],
+                self.n_words, row_base, n_rows).cpu().numpy()
+        out = counts[:n_rows].astype(np.int64)
         self._sparse_counts_memo = (key, filter_words, out)
-        return out, self.n_sparse
+        return out, n_rows, int(counts[n_rows])
 
     def mutation_counts(self, kind: str, name: str, filter_words):
         """counts[S, L] for one segment (see mutation_counts_many)."""
@@ -1509,8 +1559,9 @@ class DeviceEngine:
         """{name: counts[S, L]}: per (symbol, position) popcount of plane &
         filter, summed over partitions. Dense rows reduce with the Mutations
         kernel, sparse rows with one sparse-counts launch over the stream
-        for all segments; majority rows reconstruct as |filter| - sum(stored
-        counts at pos) (exact under the one-symbol-per-position invariant).
+        for all of the alphabet's segments; majority rows reconstruct as
+        |filter| - sum(stored counts at pos) (exact under the
+        one-symbol-per-position invariant).
         Every segment's launch is issued before the first readback. A
         DeviceFilter with a span records ``mutations.reduce`` under it."""
         span = getattr(filter_words, "span", 0)
@@ -1523,6 +1574,7 @@ class DeviceEngine:
         results: dict[str, np.ndarray] = {}
         pending = []
         need_sparse = False
+        row_base = self._sparse_alphabets.get(kind, (0, 0, 0))[1]
         with self._on_stream():
             for name in names:
                 meta = self.segment_meta[(kind, name)]
@@ -1541,9 +1593,9 @@ class DeviceEngine:
                         meta["offset"], meta["n_stored"])
                 need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
                 pending.append((name, meta, dev))
-            sparse_all, sparse_rows = (self._sparse_counts(filter_words)
-                                       if need_sparse and pending
-                                       else (None, 0))
+            sparse_all, sparse_rows, sparse_read = (
+                self._sparse_counts(filter_words, kind)
+                if need_sparse and pending else (None, 0, 0))
             dense_rows = sum(meta["n_stored"] for _, meta, dev in pending
                              if dev is not None)
             if dense_rows or sparse_rows:
@@ -1551,6 +1603,9 @@ class DeviceEngine:
                     self.mutation_queries[kind] += 1
                     self.mutation_dense_rows += dense_rows
                     self.mutation_sparse_rows += sparse_rows
+                    if sparse_rows:
+                        self.mutation_sparse_launches += 1
+                        self.mutation_sparse_entries_read += sparse_read
             for name, meta, dev in pending:
                 length, s_count = meta["length"], meta["s_count"]
                 counts = np.zeros((s_count, length), dtype=np.int64)
@@ -1561,8 +1616,8 @@ class DeviceEngine:
                     np.add.at(per_pos, meta["pos_ids"], stored)
                 n_seg_sparse = len(meta["sparse_sym_ids"])
                 if n_seg_sparse:
-                    seg_sparse = sparse_all[
-                        meta["sparse_base"]: meta["sparse_base"] + n_seg_sparse]
+                    first = meta["sparse_base"] - row_base
+                    seg_sparse = sparse_all[first: first + n_seg_sparse]
                     counts[meta["sparse_sym_ids"], meta["sparse_pos_ids"]] = (
                         seg_sparse)
                     np.add.at(per_pos, meta["sparse_pos_ids"], seg_sparse)

@@ -14,8 +14,9 @@ wrote as kernels of their own:
   per dense bank row, replacing ``:150`` ``mutation_counts_banked`` (naive
   form);
 - ``sparse_counts`` (``csrc/sparse_counts.cu``): the same per sparse-tier
-  leaf over the CSR stream, replacing ``:438`` ``sparse_filter_popcount``
-  and the boundary sums its callers take;
+  row of one alphabet over the CSR stream, in the partitions the filter
+  reaches, replacing ``:438`` ``sparse_filter_popcount`` and the boundary
+  sums its callers take;
 - ``densify_rows`` (``csrc/densify.cu``): sparse leaves into dense rows
   ``[K, PW]``, replacing ``:850`` ``densify_rows``;
 - ``densify_rows_into_pool`` (``csrc/densify.cu``): the same, written in
@@ -163,8 +164,8 @@ _SIGNATURES = {
                              _I32, _I64, _I32, _I32, _I32, _P, _P, _I64, _P,
                              _I64, _I32, _I32, _P],
     "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
-    "lapis_sparse_counts": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
-                            _P],
+    "lapis_sparse_counts": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            _I64, _I32, _I32, _P, _P],
     "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P,
                            _P],
     "lapis_densify_rows_into_pool": [_P, _P, _P, _P, _I64, _I32, _I64, _I64,
@@ -1037,6 +1038,17 @@ def popcount_rows_and_filter_plain(rows: torch.Tensor,
 
 # -- K3: the sparse-tier Mutations reduction --------------------------------
 
+# K3's work list: a lane walks one piece of a (row, partition) segment, at
+# most SPARSE_PIECE_ENTRIES entries (a few segments hold most of their
+# partition's words, and one lane over all of them would set a launch's
+# time; 16 took the least time of 8-256 on lineage1m's stream, PERF.md),
+# and a block takes SPARSE_SEGMENTS_PER_BLOCK pieces (two a thread) of one
+# partition: blocks in partitions the filter leaves empty read only its
+# words there
+SPARSE_PIECE_ENTRIES = 16
+SPARSE_SEGMENTS_PER_BLOCK = 512
+
+
 def _check_stream(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
                   lens: torch.Tensor, device: torch.device) -> None:
     """The CSR stream (idx, words [E]) and per-(leaf, partition) bounds
@@ -1049,26 +1061,56 @@ def _check_stream(idx: torch.Tensor, words: torch.Tensor, starts: torch.Tensor,
         raise ValueError("starts/lens need one segment per leaf at least")
 
 
+def sparse_segments(starts_pp: np.ndarray, lens_pp: np.ndarray,
+                    row_bounds) -> reductions.SparseSegments:
+    """K3's segment list of a stream (reductions.sparse_segments), its
+    segments cut into pieces of at most SPARSE_PIECE_ENTRIES."""
+    return reductions.sparse_segments(starts_pp, lens_pp, row_bounds,
+                                      SPARSE_PIECE_ENTRIES)
+
+
+def sparse_blocks(segments: reductions.SparseSegments,
+                  alphabet: int) -> np.ndarray:
+    """K3's grid for one alphabet of a segment list: int32 [B, 3]."""
+    return reductions.segment_blocks(segments.offsets, alphabet,
+                                     SPARSE_SEGMENTS_PER_BLOCK).astype(
+                                         np.int32)
+
+
 def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
-                  filters: torch.Tensor, starts: torch.Tensor,
-                  lens: torch.Tensor) -> torch.Tensor:
-    """counts[l] = sum over leaf l's segments [starts[l, p], +lens[l, p]) of
-    popcount(words[e] & filters[idx[e]]): int32[L] on the inputs' device.
-    Entries past the stream or with idx outside the filter count 0."""
+                  filters: torch.Tensor, rows: torch.Tensor,
+                  starts: torch.Tensor, blocks: torch.Tensor,
+                  part_words: int, row_base: int,
+                  n_rows: int) -> torch.Tensor:
+    """The Mutations counts of one alphabet's sparse rows [row_base,
+    row_base + n_rows) over the CSR stream (idx, words [E]), segment list
+    (rows [S], starts [S + 1]) and grid (blocks [B, 3], sparse_blocks), in
+    the partitions of part_words words where filters [PW] has a set bit
+    (reductions.sparse_counts): int32 [n_rows + 1] on the inputs' device,
+    the last the entries read. Entries past the stream or with idx outside
+    the filter count 0."""
     device = filters.device
     _check("filters", filters, device, (None,))
-    _check_stream(idx, words, starts, lens, device)
+    _check("idx", idx, device, (None,))
+    _check("words", words, device, (idx.shape[0],))
+    _check("rows", rows, device, (None,))
+    _check("starts", starts, device, (rows.shape[0] + 1,))
+    _check("blocks", blocks, device, (None, 3))
+    if part_words < 1 or n_rows < 0:
+        raise ValueError(f"part_words {part_words}, n_rows {n_rows}")
     if device.type == "cpu":
-        return sparse_counts_plain(idx, words, filters, starts, lens)
+        return sparse_counts_plain(idx, words, filters, rows, starts, blocks,
+                                   part_words, row_base, n_rows)
     if device.type != "cuda":
         raise ValueError(f"sparse_counts: no kernel for device {device}")
     lib = load_library()
-    out = torch.empty(starts.shape[0], dtype=torch.int32, device=device)
+    out = torch.zeros(n_rows + 1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.lapis_sparse_counts(
             idx.data_ptr(), words.data_ptr(), filters.data_ptr(),
-            starts.data_ptr(), lens.data_ptr(), starts.shape[0],
-            starts.shape[1], filters.shape[0], idx.shape[0], out.data_ptr(),
+            rows.data_ptr(), starts.data_ptr(), blocks.data_ptr(),
+            blocks.shape[0], rows.shape[0], part_words, filters.shape[0],
+            idx.shape[0], row_base, n_rows, out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "sparse_counts")
     SPARSE_COUNTS.add()
@@ -1076,24 +1118,29 @@ def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
 
 
 def sparse_counts_plain(idx: torch.Tensor, words: torch.Tensor,
-                        filters: torch.Tensor, starts: torch.Tensor,
-                        lens: torch.Tensor) -> torch.Tensor:
+                        filters: torch.Tensor, rows: torch.Tensor,
+                        starts: torch.Tensor, blocks: torch.Tensor,
+                        part_words: int, row_base: int,
+                        n_rows: int) -> torch.Tensor:
     """The plain PyTorch version of sparse_counts (ops/reductions.py)."""
     SPARSE_COUNTS.add(plain=True)
-    return reductions.sparse_counts(idx, words, filters, starts, lens)
+    return reductions.sparse_counts(idx, words, filters, rows, starts, blocks,
+                                    part_words, row_base, n_rows)
 
 
-def sparse_counts_chunked(chunks: list, filters: list) -> torch.Tensor:
+def sparse_counts_chunked(chunks: list, filters: list, part_words: int,
+                          row_base: int, n_rows: int) -> torch.Tensor:
     """sparse_counts over a stream split into entry chunks, one per shard
-    (the entry split of reductions.py:99-146): chunk d is (idx, words,
-    starts, lens) on shard d's device, its bounds clipped to the chunk
-    (reductions.clip_bounds), and filters[d] the WHOLE filter [PW] on that
-    device. Every entry lies in one chunk, so the per-leaf sums of the
-    chunks, taken on the first chunk's device, are the stream's counts:
-    int32[L]."""
+    (the entry split of reductions.py:99-146): chunk d is (idx, words, rows,
+    starts, blocks) on shard d's device, its segments clipped to it
+    (reductions.clip_segments), and filters[d] the WHOLE filter [PW] on
+    that device. Every entry lies in one chunk, so the sums of the chunks,
+    taken on the first chunk's device, are the stream's counts and entries
+    read: int32 [n_rows + 1]."""
     devices = _shard_devices(filters, chunks)
-    return reduce_sum([sparse_counts(idx, words, filt, starts, lens)
-                       for (idx, words, starts, lens), filt
+    return reduce_sum([sparse_counts(idx, words, filt, rows, starts, blocks,
+                                     part_words, row_base, n_rows)
+                       for (idx, words, rows, starts, blocks), filt
                        in zip(chunks, filters)], devices[0])
 
 

@@ -10,11 +10,15 @@ of K11 and K10 (``csrc/compact.cu``), ``group_counts``,
 kernels (``csrc/group_counts.cu``, ``csrc/mutation_counts.cu``,
 ``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
 CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
-``entry_chunks`` and ``clip_bounds`` split the sparse-tier stream's entries
-over word shards, as ``_sparse_mutation_counts_sharded_jit`` does.
+``sparse_segments``, ``segment_blocks``, ``entry_chunks`` and
+``clip_segments`` build ``sparse_counts``' work list: the stream's non-empty
+(row, partition) segments, cut into the kernel's blocks and split over word
+shards by entries, as ``_sparse_mutation_counts_sharded_jit`` splits them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -112,39 +116,147 @@ def boundary_sums(vals: torch.Tensor, starts: torch.Tensor,
 
 
 def sparse_counts(idx: torch.Tensor, words: torch.Tensor,
-                  filters: torch.Tensor, starts: torch.Tensor,
-                  lens: torch.Tensor) -> torch.Tensor:
-    """counts[l] = sum over leaf l's segments (starts/lens [L, P], one per
-    partition) of popcount(words[e] & filters[idx[e]]): the sparse-tier
-    Mutations reduction over the CSR stream (idx, words [E] int32), as
+                  filters: torch.Tensor, rows: torch.Tensor,
+                  starts: torch.Tensor, blocks: torch.Tensor,
+                  part_words: int, row_base: int,
+                  n_rows: int) -> torch.Tensor:
+    """The sparse-tier Mutations reduction of one alphabet's rows over the
+    CSR stream (idx, words [E] int32): for each block (partition p, first,
+    end) of `blocks` [B, 3] whose partition the filter reaches (a set bit in
+    filters[p * part_words : (p + 1) * part_words]), each listed segment s
+    in [first, end) adds popcount(words[e] & filters[idx[e]]) over its
+    entries [starts[s], starts[s + 1]) to out[rows[s] - row_base] (rows
+    [S], starts [S + 1]; segments past S are none). Entries outside the
+    stream or with a word index outside the filter count 0, rows outside
+    [row_base, row_base + n_rows) nowhere. out[n_rows] is the
+    number of entries in the reached blocks' segments: what the kernel
+    reads. Partition by partition this is the sum of
     _sparse_mutation_counts_jit (lapis_silo_tpu/ops/reductions.py:59-78)
-    computes it. Entries whose word index lies outside the filter count 0.
-    int32 [L]: a leaf's count is at most the sequence count."""
-    pw = filters.shape[0]
+    over the alphabet's rows; a partition the filter leaves empty adds 0
+    there too. int32 [n_rows + 1]: a row's count is at most the sequence
+    count."""
+    device = idx.device
+    pw, n = filters.shape[0], idx.shape[0]
+    out = torch.zeros(n_rows + 1, dtype=torch.int64, device=device)
+    blocks = blocks.to(torch.int64).reshape(-1, 3)
+    # the partitions with a set filter bit (the last may be ragged)
+    n_parts = max(1, -(-pw // part_words))
+    padded = torch.zeros(n_parts * part_words, dtype=filters.dtype,
+                         device=device)
+    padded[:pw] = filters
+    reaches = (padded.view(n_parts, part_words) != 0).any(dim=1)
+    part = blocks[:, 0]
+    known = (part >= 0) & (part < n_parts)
+    live = blocks[known & reaches[part.clamp(0, n_parts - 1)]]
+    first = live[:, 1].clamp(0, rows.shape[0])
+    counts = (live[:, 2].clamp(max=rows.shape[0]) - first).clamp(min=0)
+    seg = (torch.repeat_interleave(first, counts)
+           + torch.arange(int(counts.sum()), device=device)
+           - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts))
+    if not seg.numel():
+        return out.to(torch.int32)
+    seg_starts = starts.to(torch.int64)
+    lo = seg_starts[seg].clamp(0, n)
+    hi = seg_starts[seg + 1].clamp(0, n)
     inside = (idx >= 0) & (idx < pw)
     gathered = filters[idx.clamp(0, max(pw - 1, 0)).to(torch.int64)]
     vals = popcount(words & gathered) * inside
-    per_segment = boundary_sums(vals, starts.reshape(-1), lens.reshape(-1))
-    return per_segment.reshape(starts.shape).sum(dim=1).to(torch.int32)
+    sums = boundary_sums(vals, lo, hi - lo)
+    row = rows.to(torch.int64)[seg] - row_base
+    mine = (row >= 0) & (row < n_rows)
+    out.index_add_(0, row[mine], sums[mine])
+    out[n_rows] = (hi - lo).clamp(min=0).sum()
+    return out.to(torch.int32)
+
+
+def _ranks(counts: np.ndarray) -> np.ndarray:
+    """0, 1, ..., counts[i] - 1 for each i in turn: each element's rank in
+    its group of np.repeat(..., counts)."""
+    return np.arange(int(counts.sum())) - np.repeat(np.cumsum(counts)
+                                                    - counts, counts)
+
+
+class SparseSegments(NamedTuple):
+    """The non-empty (row, partition) segments of a partition-major CSR
+    stream, in stream order, each cut into pieces of at most a given number
+    of entries: piece s is row rows[s]'s entries [starts[s], starts[s + 1])
+    in one partition (starts has one entry more, the end of the last
+    piece). Alphabet a's pieces in partition p are [offsets[p, a],
+    offsets[p, a + 1]). int64 arrays."""
+
+    rows: np.ndarray
+    starts: np.ndarray
+    offsets: np.ndarray
+
+
+def sparse_segments(starts_pp: np.ndarray, lens_pp: np.ndarray, row_bounds,
+                    max_entries: int) -> SparseSegments:
+    """The segment list of a stream with per-(row, partition) bounds
+    (starts_pp, lens_pp [L, P]) written partition-major, each partition's
+    rows in id order, as the engine writes it: alphabet a owns the rows
+    [row_bounds[a], row_bounds[a + 1]), ascending bounds from 0 to L; each
+    segment cut into pieces of at most `max_entries`. ValueError where the
+    non-empty segments do not follow one another in that order without a
+    gap."""
+    starts_pp = np.asarray(starts_pp, dtype=np.int64)
+    lens_pp = np.asarray(lens_pp, dtype=np.int64)
+    n_rows, n_parts = lens_pp.shape
+    row_bounds = np.asarray(row_bounds, dtype=np.int64)
+    if (row_bounds[0] != 0 or row_bounds[-1] != n_rows
+            or (np.diff(row_bounds) < 0).any()):
+        raise ValueError(f"row bounds {row_bounds.tolist()} do not cut "
+                         f"[0, {n_rows})")
+    part, rows = np.nonzero(lens_pp.T > 0)  # partition-major, rows ascending
+    seg_starts = starts_pp[rows, part]
+    ends = seg_starts + lens_pp[rows, part]
+    if (seg_starts[1:] != ends[:-1]).any():
+        raise ValueError("the stream's segments are not partition-major "
+                         "in row order without gaps")
+    n_pieces = -(-(ends - seg_starts) // max_entries)
+    part, rows = np.repeat(part, n_pieces), np.repeat(rows, n_pieces)
+    piece_starts = (np.repeat(seg_starts, n_pieces)
+                    + _ranks(n_pieces) * max_entries)
+    keys = part * n_rows + rows
+    offsets = np.searchsorted(keys, (np.arange(n_parts)[:, None] * n_rows
+                                     + row_bounds[None, :]))
+    return SparseSegments(rows, np.append(piece_starts, ends[-1:] if len(ends)
+                                          else [0]), offsets)
+
+
+def segment_blocks(offsets: np.ndarray, alphabet: int,
+                   per_block: int) -> np.ndarray:
+    """The blocks of sparse_counts' grid for one alphabet: its segments in
+    each partition (offsets [P, A + 1], SparseSegments.offsets) cut into
+    runs of at most `per_block`, as (partition, first, end) rows. int64
+    [B, 3]."""
+    first = offsets[:, alphabet].astype(np.int64)
+    count = offsets[:, alphabet + 1] - first
+    n_blocks = -(-count // per_block)
+    part = np.repeat(np.arange(len(first)), n_blocks)
+    lo = first[part] + _ranks(n_blocks) * per_block
+    hi = np.minimum(lo + per_block, first[part] + count[part])
+    return np.stack([part, lo, hi], axis=1)
 
 
 def entry_chunks(n_entries: int, n_chunks: int) -> list[tuple[int, int]]:
     """`n_chunks` contiguous entry ranges [lo, hi) covering [0, n_entries),
     as even as integers allow. The entry split of
     lapis_silo_tpu/ops/reductions.py:99-146 without its padding: the port's
-    stream is unpadded and clip_bounds handles any split."""
+    stream is unpadded and clip_segments handles any split."""
     edges = [n_entries * c // n_chunks for c in range(n_chunks + 1)]
     return list(zip(edges[:-1], edges[1:]))
 
 
-def clip_bounds(starts: np.ndarray, lens: np.ndarray, lo: int,
-                hi: int) -> tuple[np.ndarray, np.ndarray]:
-    """Stream segments (start, len) clipped to the entry chunk [lo, hi), in
-    the chunk's own coordinates (reductions.py:134-137): the part of each
-    segment inside the chunk, empty where there is none. int64 arrays of
-    the bounds' shape."""
-    starts = np.asarray(starts, dtype=np.int64)
-    ends = starts + np.asarray(lens, dtype=np.int64)
-    local_lo = np.clip(starts - lo, 0, hi - lo)
-    local_hi = np.clip(ends - lo, 0, hi - lo)
-    return local_lo, np.maximum(local_hi - local_lo, 0)
+def clip_segments(segments: SparseSegments, lo: int,
+                  hi: int) -> SparseSegments:
+    """The segments that hold entries of the entry chunk [lo, hi), in the
+    chunk's own coordinates (reductions.py:134-137): a segment across the
+    chunk's edge keeps the part inside it, and the offsets count from the
+    chunk's first segment."""
+    starts = segments.starts
+    first = int(np.searchsorted(starts[1:], lo, "right"))
+    last = max(first, int(np.searchsorted(starts[:-1], hi, "left")))
+    return SparseSegments(
+        segments.rows[first:last],
+        np.clip(starts[first:last + 1] - lo, 0, hi - lo),
+        np.clip(segments.offsets - first, 0, last - first))

@@ -19,6 +19,7 @@ import lapis_silo_torch
 from benchmark import lineage
 from benchmark.reference.compare import agrees
 from lapis_silo_torch import tracing
+from lapis_silo_torch.common.symbols import AMINO_ACID, NUCLEOTIDE
 from lapis_silo_torch.ops.device_engine import DeviceEngine
 from lapis_silo_torch.query.engine import Query, QueryEngine
 
@@ -143,6 +144,62 @@ def test_mutations_equal_the_reference(corpus, reference, served, path,
                                           want[:5])
 
 
+@pytest.mark.parametrize("case", ["aliased", "newest", "majority"])
+@pytest.mark.parametrize("kind", ["nuc", "aa"])
+@pytest.mark.parametrize("path", ["dense", "two_tier"])
+def test_mutation_counts_many_equal_the_reference_counts(
+        corpus, reference, served, path, kind, case):
+    """The engine's per (symbol, position) counts of every segment of the
+    alphabet, the sparse rows' from K3 over the partitions the filter
+    reaches, equal the reference's counts of each symbol that is neither
+    the reference's nor the missing one."""
+    engine = served[path].device_engine
+    expression = _filter(corpus, case)
+    filt = engine.device_filter(Query(_query(
+        "Mutations", 0.05, expression)).filter)
+    segments = [s for s in corpus.segments if s.kind == kind]
+    got = engine.mutation_counts_many(kind, [s.name for s in segments], filt)
+    selected = reference.select(expression)
+    port = {"nuc": NUCLEOTIDE, "aa": AMINO_ACID}[kind]
+    mutated = 0
+    for segment in segments:
+        want, _ = reference.counts(segment.name, selected)
+        ids = [port.char_to_id[c] for c in segment.chars]
+        symbols = np.arange(len(segment.chars))
+        mask = ((symbols[None, :] != segment.reference[:, None])
+                & (symbols[None, :] != lineage.MISSING[kind]))
+        np.testing.assert_array_equal(got[segment.name][ids].T[mask],
+                                      want[mask])
+        mutated += int((want[mask] > 0).sum())
+    assert mutated
+
+
+@pytest.mark.parametrize("case", ["aliased", "newest", "majority"])
+@pytest.mark.parametrize("kind", ["nuc", "aa"])
+def test_sparse_entries_read_are_the_reached_partitions_alphabet_entries(
+        corpus, served, kind, case):
+    """K3's entries-read counter advances by the stream entries of the
+    alphabet's sparse rows in the partitions where the filter has a set
+    bit, counted with numpy from the engine's [L, P] bounds."""
+    engine = served["two_tier"].device_engine
+    filt = engine.device_filter(Query(_query(
+        "Mutations", 0.05, _filter(corpus, case))).filter)
+    words = np.concatenate([part.cpu().numpy() for part in filt.parts])
+    reached = words.reshape(engine.n_partitions, engine.n_words).any(axis=1)
+    _, row_base, n_rows = engine._sparse_alphabets[kind]
+    lens = engine.sparse_lengths_pp[row_base:row_base + n_rows]
+    want = int(lens[:, reached].sum())
+    assert 0 < reached.sum() < engine.n_partitions or case == "newest"
+    assert 0 < want < int(engine.sparse_lengths_pp.sum())
+    names = sorted(engine.db.nuc_sequences if kind == "nuc"
+                   else engine.db.aa_sequences)
+    before = (engine.mutation_sparse_entries_read,
+              engine.mutation_sparse_launches)
+    engine.mutation_counts_many(kind, names, filt)
+    assert engine.mutation_sparse_entries_read == before[0] + want
+    assert engine.mutation_sparse_launches == before[1] + 1
+
+
 # -- spans and counters ----------------------------------------------------------
 
 @pytest.fixture
@@ -171,7 +228,7 @@ def test_a_traced_mutations_query_records_its_spans_and_counters(
     engine = db.device_engine
     query = _query(action, 0.05, _filter(corpus, "aliased"))
     before = (dict(engine.mutation_queries), engine.mutation_dense_rows,
-              engine.mutation_sparse_rows)
+              engine.mutation_sparse_rows, engine.mutation_sparse_launches)
     tracing.PERFORMANCE_LOGGER.setLevel(logging.INFO)
     db.execute_query(query)
     rows = recorder.spans(*FOREVER)
@@ -191,7 +248,11 @@ def test_a_traced_mutations_query_records_its_spans_and_counters(
                 in engine.segment_meta.items() if k == kind)
     assert engine.mutation_queries[kind] == before[0][kind] + 1
     assert engine.mutation_dense_rows == before[1] + dense
-    assert engine.mutation_sparse_rows == before[2] + engine.n_sparse
+    # K3 answered the rows of the query's alphabet only
+    _, _, n_kind = engine._sparse_alphabets[kind]
+    assert 0 < n_kind < engine.n_sparse
+    assert engine.mutation_sparse_rows == before[2] + n_kind
+    assert engine.mutation_sparse_launches == before[3] + 1
 
 
 def test_the_counters_advance_only_by_the_kernels_launched(corpus, served):
@@ -204,7 +265,8 @@ def test_the_counters_advance_only_by_the_kernels_launched(corpus, served):
     names = sorted(db.aa_sequences)
     engine.mutation_counts_many("aa", names, filt)
     before = (engine.mutation_queries["aa"], engine.mutation_dense_rows,
-              engine.mutation_sparse_rows)
+              engine.mutation_sparse_rows, engine.mutation_sparse_launches,
+              engine.mutation_sparse_entries_read)
     engine.mutation_counts_many("aa", names, filt)
     dense = sum(meta["n_stored"] for (k, _), meta
                 in engine.segment_meta.items() if k == "aa")
@@ -212,6 +274,8 @@ def test_the_counters_advance_only_by_the_kernels_launched(corpus, served):
     assert engine.mutation_queries["aa"] == before[0] + 1
     assert engine.mutation_dense_rows == before[1] + dense
     assert engine.mutation_sparse_rows == before[2]
+    assert engine.mutation_sparse_launches == before[3]
+    assert engine.mutation_sparse_entries_read == before[4]
 
 
 def test_untraced_mutations_record_nothing_and_counts_keep_their_spans(

@@ -437,8 +437,8 @@ def test_plain_windowed_densify_matches_xla_window_local(n_shards, n_parts,
 def test_entry_split_sparse_counts_match_sharded_reference(
         n_shards, use_kernel, monkeypatch):
     """The stream's entries split into contiguous chunks, each chunk's
-    bounds clipped to it, K3's plain version per chunk against the whole
-    filter, and the partials summed: equal to
+    segment list clipped to it, K3's plain version per chunk and alphabet
+    against the whole filter, and the partials summed: equal to
     _sparse_mutation_counts_sharded_jit over the 8-device mesh (its XLA
     gather, or the Mosaic gather kernel in interpret mode), whose chunks are
     even over its padded stream where the port's are even over the live
@@ -457,28 +457,53 @@ def test_entry_split_sparse_counts_match_sharded_reference(
     want = np.asarray(run(_combined(idx, words, quantum), jnp.asarray(filters),
                           jnp.asarray(starts.reshape(-1)),
                           jnp.asarray(lens.reshape(-1))))
-    chunks = [(_t(idx[lo:hi]), _t(words[lo:hi]), *(
-        _t(a.astype(np.int32)) for a in reductions.clip_bounds(
-            starts, lens, lo, hi)))
-        for lo, hi in reductions.entry_chunks(len(idx), n_shards)]
-    got = kernels.sparse_counts_chunked(chunks, [_t(filters)] * n_shards)
-    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
-    whole = kernels.sparse_counts(_t(idx), _t(words), _t(filters), _t(starts),
-                                  _t(lens))
-    assert torch.equal(got, whole)
+    row_bounds = [0, 25, n_leaves]
+    segments = kernels.sparse_segments(starts, lens, row_bounds)
+    clipped = [(lo, hi, reductions.clip_segments(segments, lo, hi))
+               for lo, hi in reductions.entry_chunks(len(idx), n_shards)]
+    got, whole = [], []
+    for alphabet in (0, 1):
+        base, n_rows = row_bounds[alphabet], row_bounds[alphabet + 1] - \
+            row_bounds[alphabet]
+        chunks = [(_t(idx[lo:hi]), _t(words[lo:hi]), *(
+            _t(a.astype(np.int32)) for a in (
+                chunk.rows, chunk.starts,
+                kernels.sparse_blocks(chunk, alphabet))))
+            for lo, hi, chunk in clipped]
+        got.append(kernels.sparse_counts_chunked(
+            chunks, [_t(filters)] * n_shards, part_words, base, n_rows))
+        whole.append(kernels.sparse_counts(
+            _t(idx), _t(words), _t(filters), *(_t(a.astype(np.int32)) for a in (
+                segments.rows, segments.starts,
+                kernels.sparse_blocks(segments, alphabet))),
+            part_words, base, n_rows))
+        assert torch.equal(got[-1], whole[-1])
+    np.testing.assert_array_equal(torch.cat([g[:-1] for g in got]).numpy(),
+                                  want.astype(np.int64))
 
 
 def test_entry_chunks_and_clipping_count_each_entry_once():
     """Any split (more chunks than entries included): the clipped segments
-    of all chunks tile each segment exactly."""
-    starts = np.array([[0, 5], [5, 9], [9, 9]])
+    of all chunks tile each segment exactly, each chunk's segments in its
+    own coordinates, with the alphabets' ranges counted from its first
+    segment."""
+    starts = np.array([[0, 9], [5, 9], [9, 12]])
     lens = np.array([[5, 0], [4, 3], [0, 3]])
+    segments = kernels.sparse_segments(starts, lens, [0, 1, 3])
+    assert segments.rows.tolist() == [0, 1, 1, 2]
     for n_chunks in (1, 2, 5, 13, 20):
-        chunks = reductions.entry_chunks(12, n_chunks)
-        assert chunks[0][0] == 0 and chunks[-1][1] == 12
+        chunks = reductions.entry_chunks(15, n_chunks)
+        assert chunks[0][0] == 0 and chunks[-1][1] == 15
         assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-        total = sum(reductions.clip_bounds(starts, lens, lo, hi)[1]
-                    for lo, hi in chunks)
+        total = np.zeros_like(lens)
+        for lo, hi in chunks:
+            chunk = reductions.clip_segments(segments, lo, hi)
+            assert chunk.starts[0] >= 0 and chunk.starts[-1] <= hi - lo
+            sizes = np.diff(chunk.starts)
+            for p in range(2):
+                for a in range(2):
+                    run = slice(chunk.offsets[p, a], chunk.offsets[p, a + 1])
+                    np.add.at(total[:, p], chunk.rows[run], sizes[run])
         np.testing.assert_array_equal(total, lens)
 
 

@@ -17,6 +17,7 @@ from lapis_silo_tpu.ops import pallas_kernels as pk
 from lapis_silo_tpu.ops import reductions as ref_reductions
 from lapis_silo_tpu.ops import vm as ref_vm
 from lapis_silo_torch.ops import kernels, reductions
+from tests.test_torch_sparse_counts import _bounds_form, _filter_case, _k3
 
 
 def _stream(rng, n_leaves, n_parts, part_words, max_len, empty=()):
@@ -119,21 +120,26 @@ def test_plain_densify_into_pool_matches_mosaic_interpreted():
                                   pool[untouched])
 
 
-def test_plain_sparse_counts_matches_reference_forms(monkeypatch):
-    """Plain K3 against _sparse_mutation_counts_jit (XLA gather) and
+@pytest.mark.parametrize("case", ["random", "half", "one"])
+def test_plain_sparse_counts_matches_reference_forms(monkeypatch, case):
+    """Plain K3, over both alphabets of the rows, against
+    _sparse_mutation_counts_jit (XLA gather) and
     _sparse_mutation_counts_pallas_jit, whose per-entry values come from the
     Mosaic kernel sparse_filter_popcount in interpret mode over a stream
-    padded to SPARSE_CHUNK."""
+    padded to SPARSE_CHUNK: the partitions K3 skips add nothing there."""
     monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(9)
     n_leaves, n_parts, part_words = 40, 4, 512
     idx, words, starts, lens = _stream(rng, n_leaves, n_parts, part_words,
                                        120, empty=[(3, 1), (39, 3)])
-    filters = rng.integers(0, 2**32, size=n_parts * part_words,
-                           dtype=np.uint32)
-    got = kernels.sparse_counts(_t(idx), _t(words), _t(filters), _t(starts),
-                                _t(lens))
-    assert got.dtype == torch.int32 and got.shape == (n_leaves,)
+    filters = _filter_case(rng, case, n_parts, part_words)
+    row_bounds = [0, 17, n_leaves]
+    segments = kernels.sparse_segments(starts, lens, row_bounds)
+    parts = [_k3(idx, words, filters, segments, a, row_bounds, part_words)
+             for a in (0, 1)]
+    for got, (lo, hi) in zip(parts, ((0, 17), (17, n_leaves))):
+        assert got.dtype == torch.int32 and got.shape == (hi - lo + 1,)
+    got = torch.cat([part[:-1] for part in parts])
     comb = _combined(idx, words, pk.SPARSE_CHUNK)
     args = (jnp.asarray(filters), jnp.asarray(starts.reshape(-1)),
             jnp.asarray(lens.reshape(-1)), n_parts)
@@ -142,11 +148,8 @@ def test_plain_sparse_counts_matches_reference_forms(monkeypatch):
         comb, *args))
     np.testing.assert_array_equal(got.numpy(), xla)
     np.testing.assert_array_equal(got.numpy(), mosaic)
-    vals = np.bitwise_count(words & filters[idx]).astype(np.int64)
-    want = [sum(int(vals[s:s + n].sum()) for s, n in zip(starts[leaf],
-                                                         lens[leaf]))
-            for leaf in range(n_leaves)]
-    assert got.tolist() == want
+    assert got.tolist() == _bounds_form(idx, words, filters, starts,
+                                        lens).tolist()
 
 
 def test_boundary_sums_exact_where_the_reference_wraps():
@@ -180,8 +183,12 @@ def test_sparse_wrappers_count_plain_runs_and_check_inputs():
     pool = torch.zeros((5, 256), dtype=torch.int32)
     before = [(k.launches, k.plain_launches) for k in (
         kernels.SPARSE_COUNTS, kernels.DENSIFY_ROWS, kernels.DENSIFY_INTO_POOL)]
+    segments = kernels.sparse_segments(starts, lens, [0, 3])
+    work = [_t(a.astype(np.int32)) for a in (
+        segments.rows, segments.starts,
+        reductions.segment_blocks(segments.offsets, 0, 4))]
     kernels.sparse_counts(args[0], args[1], torch.zeros(256, dtype=torch.int32),
-                          *args[2:])
+                          *work, 128, 0, 3)
     kernels.densify_rows(*args, 256)
     kernels.densify_rows_into_pool(pool, *args, [4, 0, 2])
     after = [(k.launches, k.plain_launches) for k in (
@@ -194,6 +201,15 @@ def test_sparse_wrappers_count_plain_runs_and_check_inputs():
         kernels.densify_rows(args[0], args[1][:-1].clone(), *args[2:], 256)
     with pytest.raises(ValueError):
         kernels.densify_rows(*args[:3], args[3][:, :1].contiguous(), 256)
+    filters = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError):  # starts without the end of the last
+        kernels.sparse_counts(args[0], args[1], filters, work[0],
+                              work[1][:-1].clone(), work[2], 128, 0, 3)
+    with pytest.raises(ValueError):
+        kernels.sparse_counts(args[0], args[1], filters, *work[:2],
+                              work[2][:, :2].contiguous(), 128, 0, 3)
+    with pytest.raises(ValueError):
+        kernels.sparse_counts(args[0], args[1], filters, *work, 0, 0, 3)
 
 
 def test_densify_into_pool_takes_slots_on_the_pool_device():
@@ -253,8 +269,15 @@ def test_plain_versions_skip_entries_outside_row_and_stream():
     assert rows[0].tolist() == [1, 0, 0, 0, 0, 2, 0, 0]
     assert rows[1].tolist() == [0, 0, 0, 0, 0, 0, 0, 16]
     filters = torch.full((8,), -1, dtype=torch.int32)
-    assert kernels.sparse_counts(idx, words, filters, starts,
-                                 lens).tolist() == [2, 1]
+    rows = torch.tensor([0, 1], dtype=torch.int32)
+    seg_starts = torch.tensor([0, 3, 12], dtype=torch.int32)
+    blocks = torch.tensor([[0, 0, 2]], dtype=torch.int32)
+    # the second segment runs past the stream: 2 of its 9 entries are read
+    assert kernels.sparse_counts(idx, words, filters, rows, seg_starts,
+                                 blocks, 8, 0, 2).tolist() == [2, 1, 5]
+    # a row outside the alphabet's range counts nowhere
+    assert kernels.sparse_counts(idx, words, filters, rows, seg_starts,
+                                 blocks, 8, 1, 1).tolist() == [1, 5]
 
 
 @pytest.fixture
@@ -284,11 +307,16 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, n_leaves, n_parts,
     pw = n_parts * part_words
     cpu = [_t(a) for a in (idx, words, starts, lens)]
     dev = [a.to(cuda_device) for a in cpu]
-    filters = _t(rng.integers(0, 2**32, size=pw, dtype=np.uint32))
-    assert torch.equal(
-        kernels.sparse_counts(dev[0], dev[1], filters.to(cuda_device),
-                              *dev[2:]).cpu(),
-        kernels.sparse_counts(cpu[0], cpu[1], filters, *cpu[2:]))
+    filters = rng.integers(0, 2**32, size=pw, dtype=np.uint32)
+    row_bounds = [0, n_leaves // 2, n_leaves]
+    segments = kernels.sparse_segments(starts, lens, row_bounds)
+    for alphabet in (0, 1):
+        assert torch.equal(
+            _k3(idx, words, filters, segments, alphabet, row_bounds,
+                part_words, device=cuda_device),
+            _k3(idx, words, filters, segments, alphabet, row_bounds,
+                part_words))
+    filters = _t(filters)
     # the scratch row C = n_leaves + 2 first, then distinct others
     slots = np.concatenate([[n_leaves + 2],
                             rng.permutation(n_leaves + 2)[: n_leaves - 1]])

@@ -365,6 +365,23 @@ def test_stream_ascends_within_every_segment(corpus):
         device_engine._check_stream(repeat, starts, lens)
 
 
+def test_stream_segments_stay_in_their_partitions_words(corpus):
+    """The sparse-counts kernel's contract, which lets it skip a partition
+    whose filter words are all zero: partition p's segments index only its
+    own words; the build's check refuses an entry moved to the next
+    partition's words."""
+    state = build_state(corpus, CPU, sparse_min_words=1)
+    idx = state.sparse_idx.numpy()
+    starts, lens = state.sparse_starts_pp, state.sparse_lengths_pp
+    n_words = state.fulls[0].shape[0] // starts.shape[1]
+    device_engine._check_stream(idx, starts, lens, n_words)
+    leaf = int(np.flatnonzero(lens[:, 0])[0])
+    moved = idx.copy()
+    moved[starts[leaf, 0] + lens[leaf, 0] - 1] = n_words
+    with pytest.raises(ValueError):
+        device_engine._check_stream(moved, starts, lens, n_words)
+
+
 @pytest.mark.parametrize("route", ["pooled", "poolless"])
 def test_launch_refuses_offsets_past_int32(corpus, route, monkeypatch):
     """Stream offsets past the int32 limit (lowered here) make a densify
