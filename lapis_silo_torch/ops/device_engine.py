@@ -79,7 +79,7 @@ from .vm import (
     ALU, B_BANK, B_DYN, B_FULL, B_REG, B_SPARSE, B_ZERO, EMIT_COUNT, M_AND,
     M_MOVB, M_OR, M_XOR, MAX_BATCH_QUERIES, NO_DST, SERVE_LEN_BUCKET,
     SPARSE_BANK_BUDGET_GB, SPARSE_DENSITY_CUTOFF, _BATCH_LEN_BUCKETS,
-    _DYN_BUCKETS, _LEN_BUCKETS, _REG_BUCKETS, _SPARSE_E_MAX,
+    _DYN_BUCKETS, _REG_BUCKETS, _SPARSE_E_MAX,
     _SPARSE_K_BUCKETS, _SPARSE_K_BYTE_CAP, _Program, _round_instr,
     _smem_k_cap, pack_code_array, ProgramTooLarge, wire_bsrc, wire_opcode,
 )
@@ -108,17 +108,17 @@ class BankState:
 
 
 class VmArgs(NamedTuple):
-    """One VM launch, on the host: the wire code block [2, bucket], the
-    instruction count to run (rounded), the dyn rows (per dyn leaf, per
-    partition words), the dyn bucket, the register bucket, the sparse
-    leaves (global sparse-row ids) that B_SPARSE operands index, and the
-    segment starts (int32 [n_seg + 1], the last n_instr; None: the whole
-    program is one segment) that kernels.vm_run runs apart."""
+    """One VM launch, on the host: the wire code block [2, n_instr] (the
+    program's instructions and a NOP tail up to the multiple of _UNROLL
+    that n_instr is), n_instr, the dyn rows (per dyn leaf, per partition
+    words; the launch uploads exactly these), the register bucket, the
+    sparse leaves (global sparse-row ids) that B_SPARSE operands index,
+    and the segment starts (int32 [n_seg + 1], the last n_instr; None: the
+    whole program is one segment) that kernels.vm_run runs apart."""
 
     code: np.ndarray
     n_instr: int
     dyn_rows: list
-    n_dyn: int
     n_regs: int
     sparse_leaves: list
     seg_starts: np.ndarray | None = None
@@ -603,9 +603,6 @@ class DeviceEngine:
                 default=_SPARSE_K_BUCKETS[1]),
             smem_cap)
         self._pool_update_k_cap = smem_cap
-        # the reference's shape ladder pins compiled densify shapes; a CUDA
-        # kernel's cost follows the live entries, so there is none
-        self.sparse_shape_ladder: list = []
 
         # HOT-LEAF POOL: [C + 1, PW/D] rows per shard of densified sparse
         # leaves (row C is scratch; slot c is row c of every shard),
@@ -645,10 +642,11 @@ class DeviceEngine:
         # (group_codes_for; None: unsupported), least recent first
         self._group_codes: OrderedDict[tuple, tuple | None] = OrderedDict()
         self._group_codes_lock = threading.Lock()
-        self._sparse_zero = [
+        # one zero row per shard: the sparse rows and the dyn block of a
+        # launch that has none
+        self._zero_row = [
             torch.zeros((1, self.shards.local_words), dtype=torch.int32,
                         device=shard) for shard in self.shards.devices]
-        self._zero_dyn_cache: dict[int, list] = {}
         self._filters_memo: tuple | None = None
         self._lower_lock = threading.Lock()
         self._batcher: _MicroBatcher | None = None
@@ -907,16 +905,14 @@ class DeviceEngine:
     # -- VM launches ------------------------------------------------------------
 
     def _prepare_program(self, program: _Program) -> VmArgs:
-        n = len(program.opcodes)
-        bucket = next(b for b in _LEN_BUCKETS if b >= n)
-        code = pack_code_array(bucket, program.opcodes, program.operands,
+        n_instr = _round_instr(len(program.opcodes))
+        code = pack_code_array(n_instr, program.opcodes, program.operands,
                                program.regspec)
-        n_dyn = next(b for b in _DYN_BUCKETS if b >= len(program.dyn_rows))
         n_regs = next(b for b in _REG_BUCKETS if b >= program.max_regs)
-        return VmArgs(code, _round_instr(n), program.dyn_rows, n_dyn, n_regs,
+        return VmArgs(code, n_instr, program.dyn_rows, n_regs,
                       list(program.sparse_leaves))
 
-    def batch_args(self, lowered: list[_Program], min_bucket: int = 0) -> VmArgs:
+    def batch_args(self, lowered: list[_Program]) -> VmArgs:
         """The programs concatenated into one, each followed by an
         EMIT_COUNT of reg[0] into its query's slot; dyn operands rebased onto
         the merged dyn rows, and sparse leaves deduplicated across the batch
@@ -969,48 +965,39 @@ class DeviceEngine:
             flat_spec.append(NO_DST)  # ra = 0 implied
         if len(flat_ops) > _BATCH_LEN_BUCKETS[-1]:
             raise ProgramTooLarge(len(flat_ops))
-        bucket = next(b for b in _BATCH_LEN_BUCKETS
-                      if b >= max(len(flat_ops), min_bucket))
-        code = pack_code_array(bucket, flat_ops, flat_opers, flat_spec)
-        n_dyn = next(b for b in _DYN_BUCKETS if b >= len(dyn_rows))
+        n_instr = _round_instr(len(flat_ops))
+        code = pack_code_array(n_instr, flat_ops, flat_opers, flat_spec)
         n_regs = next(b for b in _REG_BUCKETS
                       if b >= max(p.max_regs for p in lowered))
-        n_instr = _round_instr(len(flat_ops))
         # the NOP tail joins the last segment
         seg_starts = [start for start, _, _ in segments] + [n_instr]
-        return VmArgs(code, n_instr, dyn_rows, n_dyn, n_regs, sparse_leaves,
+        return VmArgs(code, n_instr, dyn_rows, n_regs, sparse_leaves,
                       np.asarray(seg_starts, dtype=np.int32))
 
-    def _dyn_tensor(self, dyn_rows: list, n_dyn: int) -> list[torch.Tensor]:
-        """[n_dyn, PW/D] dyn rows per shard on its device (a cached zero
-        block when the program has none: data-free queries upload only
-        their code)."""
+    def _dyn_tensor(self, dyn_rows: list) -> list[torch.Tensor]:
+        """[len(dyn_rows), PW/D] dyn rows per shard on its device; one zero
+        row per shard (`_zero_row`) when the program has none, so a
+        data-free query uploads only its code."""
         if not dyn_rows:
-            cached = self._zero_dyn_cache.get(n_dyn)
-            if cached is None:
-                cached = [torch.zeros((n_dyn, self.shards.local_words),
-                                      dtype=torch.int32, device=shard)
-                          for shard in self.shards.devices]
-                self._zero_dyn_cache[n_dyn] = cached
-            return cached
-        dyn = np.zeros((n_dyn, self.n_partitions, self.n_words),
+            return self._zero_row
+        dyn = np.zeros((len(dyn_rows), self.n_partitions, self.n_words),
                        dtype=np.uint32)
         for di, rows in enumerate(dyn_rows):
             for pi, row in enumerate(rows):
                 dyn[di, pi] = row
-        return split_words(dyn.reshape(n_dyn, self.n_flat_words),
-                            self.shards.devices)
+        return split_words(dyn.reshape(len(dyn_rows), self.n_flat_words),
+                           self.shards.devices)
 
     def kernel_inputs(self, args: VmArgs, sparse_rows: list | None = None,
                       ) -> tuple:
         """The positional arguments of kernels.vm_run_sharded for one
-        launch: the code block's first n_instr columns, the dyn rows
-        uploaded, the rows B_SPARSE operands read (`sparse_rows`, one
-        tensor per shard; one zero row for programs without sparse leaves),
-        and the segment starts."""
-        code = torch.from_numpy(np.ascontiguousarray(args.code[:, :args.n_instr]))
-        dyns = self._dyn_tensor(args.dyn_rows, args.n_dyn)
-        rows = self._sparse_zero if sparse_rows is None else sparse_rows
+        launch: the code block as it is (no copy: it is n_instr columns
+        wide), the dyn rows uploaded, the rows B_SPARSE operands read
+        (`sparse_rows`, one tensor per shard; one zero row for programs
+        without sparse leaves), and the segment starts."""
+        code = torch.from_numpy(args.code)
+        dyns = self._dyn_tensor(args.dyn_rows)
+        rows = self._zero_row if sparse_rows is None else sparse_rows
         return (code, args.n_instr, self.banks, dyns, rows, self.fulls,
                 args.n_regs, args.seg_starts)
 
@@ -1074,7 +1061,7 @@ class DeviceEngine:
             return None
         if kind == B_FULL:
             return self.fulls
-        return [zero[0] for zero in self._dyn_tensor([], 1)]
+        return [zero[0] for zero in self._zero_row]
 
     def _trivial_total(self, program: _Program) -> int | None:
         """The total of a single full/empty load, known on the host: every
@@ -1297,13 +1284,11 @@ class DeviceEngine:
             return host
         return int(self.count_async(filter_expr, program=program))
 
-    def count_batch(self, filter_exprs: list, min_bucket: int = 0,
-                    min_sparse_k: int = 0, min_sparse_e: int = 0) -> list[int]:
-        """Many counts in one launch (the programs concatenate, each ending
-        with EMIT_COUNT). The sparse floors pin compiled shapes in the
-        reference; the port accepts and ignores them."""
-        return self.count_programs([self.lower(f)[0] for f in filter_exprs],
-                                   min_bucket)
+    def count_batch(self, filter_exprs: list) -> list[int]:
+        """Many counts, lowered and run through count_programs: the
+        programs concatenate, each ending with EMIT_COUNT, in as few
+        launches as the caps allow."""
+        return self.count_programs([self.lower(f)[0] for f in filter_exprs])
 
     def host_count(self, program: _Program,
                    allow_interpret: bool = True) -> int | None:
@@ -1368,17 +1353,12 @@ class DeviceEngine:
                 regs[dst] = a & (b ^ full)
         return int(bitset.popcount(regs[0].reshape(-1)))
 
-    def sparse_floors(self, programs) -> tuple[int, int]:
-        """The reference's shape-ladder floors: the port pins no shapes."""
-        return (0, 0)
-
-    def count_split(self, lowered: list[_Program], min_bucket: int = 0,
-                    min_sparse_k: int = 0, min_sparse_e: int = 0,
+    def count_split(self, lowered: list[_Program],
                     max_bucket: int | None = None):
         """Phase 1 of a batched count (non-blocking): answer host-computable
         programs and enqueue the device launches. Returns
         (results-with-None-at-device-slots, device_idx, dispatches); finish
-        with count_finish. The sparse floors are accepted and ignored."""
+        with count_finish."""
         results: list[int | None] = [None] * len(lowered)
         device_idx: list[int] = []
         device_programs: list[_Program] = []
@@ -1392,7 +1372,7 @@ class DeviceEngine:
                 results[i] = host
         dispatches = []
         if device_programs:
-            dispatches = self.count_dispatches(device_programs, min_bucket,
+            dispatches = self.count_dispatches(device_programs,
                                                max_bucket=max_bucket)
         return results, device_idx, dispatches
 
@@ -1405,8 +1385,7 @@ class DeviceEngine:
             results[i] = count
         return results
 
-    def count_programs(self, lowered: list[_Program], min_bucket: int = 0,
-                       min_sparse_k: int = 0, min_sparse_e: int = 0,
+    def count_programs(self, lowered: list[_Program],
                        max_bucket: int | None = None,
                        span: int = 0) -> list[int]:
         """count_batch over already-lowered programs (the micro-batcher
@@ -1414,7 +1393,7 @@ class DeviceEngine:
         With `span`, the id of a traced batch, the call is recorded under
         it as ``batch.count`` and its count_finish as ``batch.readback``."""
         start = time.time_ns()
-        split = self.count_split(lowered, min_bucket, max_bucket=max_bucket)
+        split = self.count_split(lowered, max_bucket=max_bucket)
         read = time.time_ns()
         counts = self.count_finish(*split)
         end = time.time_ns()
@@ -1428,8 +1407,7 @@ class DeviceEngine:
                         count_span)
         return counts
 
-    def count_dispatches(self, lowered: list[_Program], min_bucket: int = 0,
-                         min_sparse_k: int = 0, min_sparse_e: int = 0,
+    def count_dispatches(self, lowered: list[_Program],
                          max_bucket: int | None = None,
                          force_poolless: bool = False,
                          ) -> list[tuple[torch.Tensor, int]]:
@@ -1443,7 +1421,7 @@ class DeviceEngine:
             out = []
             for i in range(0, q, MAX_BATCH_QUERIES):
                 out.extend(self.count_dispatches(
-                    lowered[i: i + MAX_BATCH_QUERIES], min_bucket,
+                    lowered[i: i + MAX_BATCH_QUERIES],
                     max_bucket=max_bucket, force_poolless=force_poolless))
             return out
         # Cold-sweep pool bypass (device_engine.py:1270-1292): when a batch's
@@ -1461,8 +1439,7 @@ class DeviceEngine:
                 if (2 * misses > len(distinct) and misses > 0
                         and poolless_n < pooled_n):
                     return self.count_dispatches(
-                        lowered, min_bucket, max_bucket=max_bucket,
-                        force_poolless=True)
+                        lowered, max_bucket=max_bucket, force_poolless=True)
         len_cap = max_bucket or _BATCH_LEN_BUCKETS[-1]
         sparse_cap = (self.max_sparse_k if force_poolless
                       else self.sparse_batch_cap)
@@ -1482,13 +1459,13 @@ class DeviceEngine:
                           or len(acc_sparse) > sparse_cap):
                     split = i
                     break
-            return (self.count_dispatches(lowered[:split], min_bucket,
+            return (self.count_dispatches(lowered[:split],
                                           max_bucket=max_bucket,
                                           force_poolless=force_poolless)
-                    + self.count_dispatches(lowered[split:], min_bucket,
+                    + self.count_dispatches(lowered[split:],
                                             max_bucket=max_bucket,
                                             force_poolless=force_poolless))
-        _words, counts = self._run(self.batch_args(lowered, min_bucket),
+        _words, counts = self._run(self.batch_args(lowered),
                                    use_pool=not force_poolless)
         return [(counts, q)]
 
@@ -1746,7 +1723,6 @@ class _MicroBatcher:
                 try:
                     counts = engine.count_programs(
                         [item["program"] for item in ready],
-                        min_bucket=SERVE_LEN_BUCKET,
                         max_bucket=SERVE_LEN_BUCKET, span=batch_span)
                     for item, count in zip(ready, counts):
                         item["result"] = count

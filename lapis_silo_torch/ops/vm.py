@@ -86,9 +86,13 @@ def pack_code_array(bucket: int, opcodes, operands, regspec) -> np.ndarray:
     return code
 
 
-# Program-length buckets of a single query and of a batch, and dyn-row
-# buckets. The port keeps the reference's buckets so both packages produce
-# the same code arrays; only the first n_instr columns travel to the card.
+# The reference's program-length buckets (a single query, a batch, the
+# serving batch) and dyn-row buckets. The port uses only their caps: the
+# lowering refuses past _LEN_BUCKETS[-1] instructions or _DYN_BUCKETS[-1] dyn
+# rows, and a batch splits at SERVE_LEN_BUCKET (served), _BATCH_LEN_BUCKETS[-1]
+# or _DYN_BUCKETS[-1]. The CUDA kernels take the lengths at run time, so the
+# port packs each program at its own length (_round_instr) and uploads
+# exactly its dyn rows.
 _LEN_BUCKETS = (16, 64, 256, 512)
 _BATCH_LEN_BUCKETS = (64, 256, 1024, 4096, 8192, 16384, 32768, 65536)
 SERVE_LEN_BUCKET = 8192

@@ -282,8 +282,6 @@ class CountFastPath:
             return None
         if action.limit is not None and action.limit < 1:
             return None
-        # sparse-leaf programs ride the engine's shape ladder; they are
-        # still a single dispatch, so no further restriction is needed
         return data
 
     # -- drainer ---------------------------------------------------------------
@@ -421,12 +419,8 @@ class CountFastPath:
                         slot_of[handle_idx] = slot
                         programs.append(table.programs[handle_idx])
                     task_slot.append(slot)
-                engine = table.engine
-                min_k, min_e = engine.sparse_floors(programs)
-                split = engine.count_split(
-                    programs, min_bucket=SERVE_LEN_BUCKET,
-                    min_sparse_k=min_k, min_sparse_e=min_e,
-                    max_bucket=SERVE_LEN_BUCKET)
+                split = table.engine.count_split(
+                    programs, max_bucket=SERVE_LEN_BUCKET)
                 batch.append((table, keys, task_slot, split))
             except Exception as ex:  # noqa: BLE001 — parity: JSON 500
                 logger.exception("fast-path batch dispatch failed")

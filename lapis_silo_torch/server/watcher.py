@@ -97,10 +97,9 @@ class DatabaseDirectoryWatcher:
                 {"action": {"type": "Aggregated"}, "filterExpression": filt}))
             database.execute_query(json.dumps(
                 {"action": {"type": "Aggregated"}, "filterExpression": {"type": "True"}}))
-            # Also run the micro-batcher's max-bucket batch once
+            # Also run a batched count launch once
             engine = database.device_engine
             if engine is not None:
-                from ..ops.device_engine import SERVE_LEN_BUCKET
                 from ..query.engine import Query
 
                 query = Query(json.dumps(
@@ -134,13 +133,7 @@ class DatabaseDirectoryWatcher:
                                                  "children": leaves}}))
                         programs.append(engine.lower(sparse_query.filter)[0])
                         break
-                # one launch per sparse-ladder rung (the port pins no
-                # shapes: one rung)
-                for min_k, min_e in (engine.sparse_shape_ladder or [(0, 0)]):
-                    engine.count_programs(programs,
-                                          min_bucket=SERVE_LEN_BUCKET,
-                                          min_sparse_k=min_k,
-                                          min_sparse_e=min_e)
+                engine.count_programs(programs)
                 # pooled engines: the pool is allocated before live miss
                 # bursts hit it
                 engine.warm_pool_updates()

@@ -171,7 +171,8 @@ def test_wide_batches_split_and_stay_exact(max_bucket, n_dyn_leaves):
 
 def _xla_whole_program(engine, args, sparse_rows) -> tuple:
     """The reference's XLA interpreter over the whole concatenated program
-    of VmArgs `args`, its dyn and sparse rows zero-padded to fixed counts
+    of VmArgs `args`, its code NOP-padded to the reference's batch length
+    bucket and its dyn and sparse rows zero-padded to fixed counts
     (operands index below them) so that few shapes compile: (reg[0] words,
     counts [4096])."""
     code, n_instr, banks, dyns, rows, fulls, n_regs, _starts = (
@@ -189,9 +190,13 @@ def _xla_whole_program(engine, args, sparse_rows) -> tuple:
     n_pad = 256 if rows[0].shape[0] <= 256 else 1024
     bank, dyn, sparse = (host(banks[0]), host(dyns[0], 256),
                          host(rows[0], n_pad))
-    blob = np.append(args.code.reshape(-1), np.int32(n_instr))
+    bucket = next(b for b in ref_vm._BATCH_LEN_BUCKETS if b >= n_instr)
+    padded = np.full((2, bucket), ref_vm.WIRE_NOP, dtype=np.int32)
+    padded[0] = 0
+    padded[:, :n_instr] = code.numpy()
+    blob = np.append(padded.reshape(-1), np.int32(n_instr))
     return tuple(np.asarray(ref_vm._interpreter(
-        args.code.shape[1], bank.shape[0], 256, n_pad, pw, output,
+        bucket, bank.shape[0], 256, n_pad, pw, output,
         n_regs=n_regs)(blob, bank, dyn, sparse, host(fulls[0])))
         for output in ("words", "multi_count"))
 
@@ -307,6 +312,87 @@ def test_dependent_program_merges_back_to_its_writer(max_regs_of_last):
     assert row3 > 0 and counts[:4].tolist() == [
         int(engine._dense_row_counts[5]), int(engine._dense_row_counts[7]),
         row3, row3]
+
+
+# 1,000 sequences per partition over 4,000 positions: with sparse_min_words=1
+# nearly every row is word-sparse (the corpus of tests/test_torch_two_tier.py)
+LAUNCH_CORPUS = dict(n_rows=3000, length=4000, n_partitions=3, seed=21)
+LAUNCH_FILTERS = [
+    {"type": "And", "children": [
+        {"type": "HasNucleotideMutation", "position": 11},
+        {"type": "HasNucleotideMutation", "position": 23}]},
+    {"type": "And", "children": [
+        {"type": "IntBetween", "column": "age", "from": 20, "to": 70},
+        {"type": "HasNucleotideMutation", "position": 31}]},
+    {"type": "And", "children": [
+        {"type": "IntBetween", "column": "age", "from": 20, "to": 70},
+        {"type": "Not", "child": {"type": "StringEquals", "column": "country",
+                                  "value": "Germany"}},
+        {"type": "HasNucleotideMutation", "position": 47}]},
+    {"type": "Or", "children": [
+        {"type": "DateBetween", "column": "date", "from": "2021-01-01",
+         "to": "2021-03-01"},
+        {"type": "HasNucleotideMutation", "position": 5},
+        {"type": "IntBetween", "column": "age", "from": 90, "to": 99}]},
+]
+
+
+@pytest.mark.parametrize("case", ["program", "batch", "pooled"])
+def test_launch_packs_code_at_its_length_and_dyn_rows_as_named(
+        case, monkeypatch):
+    """A launch carries its program at its own length: the code block is
+    _round_instr(n) columns wide (n its instructions, a batch's EMITs
+    included) and reaches the kernel without a copy, each shard's dyn block
+    has one row per dyn row the programs name (one zero row for none), and
+    the counts equal the host's. Cases: single programs (_prepare_program),
+    a served batch (batch_args) and a batch over the hot-leaf pool of a
+    two-tier bank, on two word shards."""
+    db = synthetic_database(**LAUNCH_CORPUS)
+    engine = DeviceEngine(db, CPU, devices=[CPU, CPU],
+                          sparse_min_words=1 if case == "pooled" else None)
+    assert len(engine.shards) == 2
+    assert (engine.pool_slots > 0) == (case == "pooled")
+    queries = [Query(json.dumps({"filterExpression": f, "action": {
+        "type": "Aggregated"}})) for f in LAUNCH_FILTERS]
+    lowered = [engine.lower(q.filter)[0] for q in queries]
+    want = [sum(int(np.bitwise_count(words).sum())
+                for words in _host_words(db, q)) for q in queries]
+    assert sorted({len(p.dyn_rows) for p in lowered}) == [0, 1, 2]
+    assert any(p.sparse_leaves for p in lowered) == (case == "pooled")
+    seen = []
+    vm_run_sharded = kernels.vm_run_sharded
+
+    def recorded(code, n_instr, banks, dyns, *rest):
+        seen.append((tuple(code.shape), n_instr,
+                     [dyn.shape[0] for dyn in dyns]))
+        return vm_run_sharded(code, n_instr, banks, dyns, *rest)
+
+    monkeypatch.setattr(kernels, "vm_run_sharded", recorded)
+    if case == "program":
+        launches = [([p], engine._prepare_program(p), len(p.opcodes))
+                    for p in lowered]
+    else:
+        launches = [(lowered, engine.batch_args(lowered),
+                     sum(len(p.opcodes) + 1 for p in lowered))]
+    got = []
+    for programs, args, n in launches:
+        named = sum(len(p.dyn_rows) for p in programs)
+        assert args.n_instr == vm._round_instr(n)
+        assert args.code.shape == (2, args.n_instr)
+        assert len(args.dyn_rows) == named
+        code, n_instr, _banks, dyns = engine.kernel_inputs(args)[:4]
+        assert np.shares_memory(code.numpy(), args.code)
+        assert [dyn.shape[0] for dyn in dyns] == [max(1, named)] * 2
+        words, counts = engine._run(args)
+        assert seen.pop() == ((2, n_instr), n_instr, [max(1, named)] * 2)
+        if case == "program":
+            got.append(int(np.bitwise_count(
+                engine._gather_host(words)).sum()))
+        else:
+            got.extend(counts[:len(programs)].tolist())
+    assert got == want
+    if case == "pooled":
+        assert engine.pool_hits + engine.pool_misses > 0
 
 
 def test_concurrent_counts_coalesce_exactly():

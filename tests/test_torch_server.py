@@ -294,6 +294,28 @@ def test_watcher_installs_the_port_engine(snapshots, monkeypatch):
     assert kernels.GROUP_COUNTS.plain_launches == before + 1
 
 
+def test_watcher_warmup_runs_the_two_tier_paths(caplog):
+    """The watcher's warm-up over a two-tier bank with its hot-leaf pool,
+    installed as install() does: it logs no failure (it swallows every
+    exception, so only its log tells), allocates the pool and runs a
+    batched count with sparse leaves through it."""
+    db = testing.synthetic_database(n_rows=3000, length=4000, n_partitions=3,
+                                    seed=21)
+    engine = lapis_silo_torch.DeviceEngine(db, torch.device("cpu"),
+                                           sparse_min_words=1)
+    assert engine.n_sparse > 0 and engine.pool_slots > 0
+    db.device_engine = engine
+    with db._engine_lock:
+        db._engine = QueryEngine(db, engine)
+    with caplog.at_level(logging.INFO,
+                         logger="lapis_silo_torch.server.watcher"):
+        DatabaseDirectoryWatcher._warmup(db)
+    assert "device warm-up failed" not in caplog.text
+    assert "device warm-up done" in caplog.text
+    assert engine.leaf_pool is not None
+    assert engine.pool_misses > 0
+
+
 def test_watcher_without_a_device_fails_the_load(snapshots, monkeypatch,
                                                  caplog):
     """No CUDA and no SILO_TORCH_DEVICE: the load fails loudly (logged) and
