@@ -8,6 +8,8 @@ on the card.
     python3 chip_smoke.py           # every phase, on one card or more
     python3 chip_smoke.py --pod     # phases 8c and 8d alone (four cards)
     python3 chip_smoke.py --k3      # phase 3's K3 checks and 3k alone
+    python3 chip_smoke.py --k2 [PARENT]  # K2 alone; PARENT: an earlier
+                                         # tree unpacked in the checkout
 
 Phases, one line each or more (the last line is the JSON verdict):
   1. environment: torch/CUDA versions, the card's name and power limit;
@@ -1047,6 +1049,217 @@ def k3_lineage_shapes(kernels, torch, device, scale: float = 1) -> dict:
     return out
 
 
+def load_parent(root: Path):
+    """An earlier tree's lapis_silo_torch (unpacked under `root`, a
+    directory of the checkout that .gitignore lists) as
+    parent_lapis_silo_torch: its kernels build beside it."""
+    import importlib.util
+
+    package = root / "lapis_silo_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_lapis_silo_torch", package / "__init__.py",
+        submodule_search_locations=[str(package)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of fn() in ms with the L2 emptied before each call:
+    CUDA events around each call alone, `flush` (a write of more than the
+    L2) queued before it."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sum(times) / len(times)
+
+
+def kernel_ms(fn, reps: int, name: str, flush=None) -> float:
+    """Device time per call of fn() in ms of the kernels whose name holds
+    `name`, as torch.profiler (CUPTI) records them over `reps` calls: the
+    kernel alone, without the other kernels fn() queues (the zero fill of
+    its output) or the card's gaps between them. With `flush` (a write of
+    more than the L2) queued before each call, the L2 is emptied first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if name in e.key)
+    assert us > 0, f"the profiler saw no kernel named {name}"
+    return us / 1e3 / reps
+
+
+def k2_probe(kernels, torch, device, parent_root: Path | None) -> dict:
+    """K2 alone, against its plain version and, with `parent_root`, against
+    the parent's K2 on the same inputs, in turns parent, change, change,
+    parent. At the lineage cell's shapes (lineage1m: 29 partitions of 1,000
+    words whose genomes fill 513-1,000, 149 nucleotide and 88 amino-acid
+    dense rows, the padding zero as the engine leaves it), with filters of
+    random own words in 8 and in all 29 partitions: the change's one launch
+    per alphabet, the parent's one launch over the rows and, for the amino
+    acids, its one launch per gene with dense rows (9 of them); warm (the
+    rows stay in L2 between launches, as repeated queries may find them)
+    and with the L2 emptied before each launch; each by CUDA events (the
+    zero fill of the output and the gaps included) and as K2's kernel
+    alone (torch.profiler). At the bring-up shapes of
+    PERF.md's kernel table, row 2 (89,709 rows of 2,048 words, one
+    partition, a random filter): warm only, the rows far past the L2, for
+    K2 and for K8 over them; and K7 at phase 8a's shapes. The byte bound of
+    a launch: the words of its rows in the pieces it reaches, the pieces'
+    filter words, the counts written.
+    Returns {label: {side: ms}, ...}."""
+    k2_symbol = "mutation_counts_kernel"
+    rng = np.random.default_rng(4240000024)
+    parent = None
+    if parent_root is not None:
+        parent = load_parent(parent_root).ops.kernels
+        parent.build()
+        parent.load_library()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            device)
+
+    flush = torch.empty(48 << 20, dtype=torch.int32, device=device)
+    out = {}
+
+    def turns(label, fns, reps, timer=cuda_ms, bytes_=None):
+        times = {side: [] for side in fns}
+        order = list(fns)
+        for side in (order[::-1] + order) if len(order) > 1 else order * 2:
+            times[side].append(timer(fns[side], reps))
+        out[label] = {side: statistics.median(t) for side, t in times.items()}
+        bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        log("3k K2", f"{label}: " + ", ".join(
+            f"{side} {ms:.4f} ms" for side, ms in out[label].items())
+            + f"; bound {bound_ms:.4f} ms ({bytes_ / 1e6:.3f} MB)")
+        out[label]["bound"] = bound_ms
+
+    n_parts, part_words = 29, 1000
+    own = rng.integers(513, 1001, size=n_parts)
+    own[0] = 1000
+    pw = n_parts * part_words
+    padding = np.ones((n_parts, part_words), dtype=bool)
+    for p, n in enumerate(own):
+        padding[p, :n] = False
+    genes = np.array_split(np.arange(88), 9)
+    pieces = dev(kernels.dense_pieces(part_words, own, 0, pw))
+    for kind, n_rows in (("nuc", 149), ("aa", 88)):
+        bank = rng.integers(0, 1 << 32, size=(n_rows, n_parts, part_words),
+                            dtype=np.uint32)
+        bank[:, padding] = 0
+        bank = dev(bank.reshape(n_rows, pw))
+        for n_reached in (8, 29):
+            reached = np.sort(rng.permutation(n_parts)[:n_reached])
+            filt = np.zeros((n_parts, part_words), dtype=np.uint32)
+            filt[reached] = rng.integers(0, 1 << 32,
+                                         size=(n_reached, part_words),
+                                         dtype=np.uint32)
+            filt[padding] = 0
+            filt = dev(filt.reshape(-1))
+            got = kernels.mutation_counts(bank, filt, 0, n_rows, pieces)
+            want = kernels.mutation_counts_plain(bank, filt, 0, n_rows,
+                                                 pieces)
+            assert max_abs_err(got, want) == 0, (kind, n_reached)
+            read = int(own[reached].sum())
+            assert int(got[n_rows]) == read
+            fns = {"change": lambda: kernels.mutation_counts(
+                bank, filt, 0, n_rows, pieces)}
+            if parent is not None:
+                assert max_abs_err(parent.mutation_counts(
+                    bank, filt, 0, n_rows), got[:n_rows]) == 0
+                fns = {"parent": lambda: parent.mutation_counts(
+                    bank, filt, 0, n_rows), **fns}
+                if kind == "aa":
+                    fns["parent per gene"] = lambda: [
+                        parent.mutation_counts(bank, filt, int(g[0]), len(g))
+                        for g in genes]
+            bytes_ = 4 * (n_rows * read + int(own.sum()) + n_rows + 1)
+            label = f"lineage {kind} {n_rows} rows, {n_reached} partitions"
+            turns(label + " warm", fns, 50, bytes_=bytes_)
+            turns(label + " cold", fns, 30,
+                  lambda fn, reps: cold_ms(fn, reps, flush), bytes_=bytes_)
+            turns(label + " warm, kernel alone", fns, 50,
+                  lambda fn, reps: kernel_ms(fn, reps, k2_symbol),
+                  bytes_=bytes_)
+            turns(label + " cold, kernel alone", fns, 30,
+                  lambda fn, reps: kernel_ms(fn, reps, k2_symbol, flush),
+                  bytes_=bytes_)
+    n_rows, pw = 89709, 2048
+    bank = dev(rng.integers(0, 1 << 32, size=(n_rows, pw), dtype=np.uint32))
+    filt = dev(rng.integers(0, 1 << 32, size=pw, dtype=np.uint32))
+    got = kernels.mutation_counts(bank, filt, 0, n_rows)
+    assert max_abs_err(got, kernels.mutation_counts_plain(
+        bank, filt, 0, n_rows)) == 0
+    fns = {"change": lambda: kernels.mutation_counts(bank, filt, 0, n_rows)}
+    if parent is not None:
+        assert max_abs_err(parent.mutation_counts(bank, filt, 0, n_rows),
+                           got[:n_rows]) == 0
+        fns = {"parent": lambda: parent.mutation_counts(
+            bank, filt, 0, n_rows), **fns}
+    turns(f"bring-up {n_rows} rows x {pw} words", fns, 20,
+          bytes_=4 * (n_rows * pw + pw + n_rows + 1))
+    # K8 (popcount_rows_and_filter) over the same rows, and K7
+    # (mutation_counts_sharded) at phase 8a's shapes: four word shards of
+    # [89,709, 8,192] on this card, one 262,144-genome partition each (the
+    # engine's tables; whole rows for the parent), random words drawn on
+    # the card
+    fns = {"change": lambda: kernels.popcount_rows_and_filter(bank, filt)}
+    if parent is not None:
+        fns = {"parent": lambda: parent.popcount_rows_and_filter(bank, filt),
+               **fns}
+    turns(f"K8 {n_rows} rows x {pw} words", fns, 20,
+          bytes_=4 * (n_rows * pw + pw + n_rows))
+    del bank
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4240000024)
+    n_shards, local = 4, 8192
+
+    def draw(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                             device=device, generator=gen)
+
+    banks = [draw(n_rows, local) for _ in range(n_shards)]
+    filters = [draw(local) for _ in range(n_shards)]
+    tables = [torch.from_numpy(kernels.dense_pieces(
+        local, [local] * n_shards, d * local, (d + 1) * local)).to(device)
+        for d in range(n_shards)]
+    got = kernels.mutation_counts_sharded(banks, filters, 0, n_rows, tables)
+    assert max_abs_err(got, kernels.mutation_counts_sharded_plain(
+        banks, filters, 0, n_rows, tables)) == 0
+    assert int(got[n_rows]) == n_shards * local
+    fns = {"change": lambda: kernels.mutation_counts_sharded(
+        banks, filters, 0, n_rows, tables)}
+    if parent is not None:
+        assert max_abs_err(parent.mutation_counts_sharded(
+            banks, filters, 0, n_rows), got[:n_rows]) == 0
+        fns = {"parent": lambda: parent.mutation_counts_sharded(
+            banks, filters, 0, n_rows), **fns}
+    pw = n_shards * local
+    turns(f"K7 {n_rows} rows x {n_shards} shards of {local} words", fns, 10,
+          bytes_=4 * (n_rows * pw + pw + n_shards * n_rows))
+    return out
+
+
 def phase3_random(kernels, vm, torch, device) -> dict[str, int]:
     """Every kernel against its plain version on random inputs: for the VM
     every mode and b-source, n_regs 4/8/16/32, clamped operands, the NOP
@@ -1651,7 +1864,8 @@ def sharded_kernels(engine, kernels, lowered, mut_query: str, err: dict,
         len(engine.shards.distinct))
     filters = engine.device_filter(Query(mut_query).filter).parts
     meta = engine.segment_meta[("nuc", "main")]
-    args = (engine.banks, filters, meta["offset"], meta["n_stored"])
+    args = (engine.banks, filters, meta["offset"], meta["n_stored"],
+            engine._dense_pieces)
     err["mutation_counts_sharded"] = max(
         err["mutation_counts_sharded"], max_abs_err(
             kernels.mutation_counts_sharded(*args),
@@ -1769,7 +1983,7 @@ def phase8c(main: MainPath, kernels, torch, engine, program) -> dict:
             torch.from_numpy(code), code.shape[1], banks, dyns,
             step._no_sparse, fulls, vm.MAX_REGS)
         plain_muts = kernels.mutation_counts_sharded_plain(
-            banks, plain_words, min(start, n_rows - 64), 64)
+            banks, plain_words, min(start, n_rows - 64), 64)[:64]
         assert all(max_abs_err(a, b) == 0 for a, b in zip(words, plain_words))
         assert max_abs_err(muts, plain_muts) == 0
         host = np.concatenate([w.cpu().numpy() for w in words]).view(np.uint32)
@@ -2744,6 +2958,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--k2"]:
+        k2_probe(kernels, torch, device,
+                 Path(sys.argv[2]).resolve() if sys.argv[2:] else None)
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--pod"]:
         pod_only(main_path, kernels, torch)
         print(nvidia_smi())
@@ -2795,7 +3017,8 @@ def main() -> int:
     mut_filter = engine.device_filter(
         Query(mutations_queries(db)[0]).filter).parts[0]
     meta = engine.segment_meta[("nuc", "main")]
-    mut_args = (banks[0], mut_filter, meta["offset"], meta["n_stored"])
+    mut_args = (banks[0], mut_filter, meta["offset"], meta["n_stored"],
+                engine._dense_pieces[0])
     err["mutation_counts"] = max(err["mutation_counts"], max_abs_err(
         kernels.mutation_counts(*mut_args),
         kernels.mutation_counts_plain(*mut_args)))

@@ -507,6 +507,16 @@ class DeviceEngine:
         # host_count interprets on it
         self._full_host = self._gather_host(self.fulls).reshape(
             self.n_partitions, self.n_words)
+        # K2's row pieces on each shard: every partition's own words in the
+        # shard's window (a partition across a window's edge has pieces on
+        # both shards), so a Mutations reduction reads neither the padding
+        # nor the partitions its filter leaves empty
+        own_words = [bitset.words_for(n) for n in self.part_rows]
+        self._dense_pieces = [
+            torch.from_numpy(kernels.dense_pieces(
+                self.n_words, own_words, lo, lo + self.shards.local_words)
+            ).to(shard)
+            for shard, lo in zip(self.shards.devices, self.shards.offsets)]
         self.sparse_idx = state.sparse_idx
         self.sparse_words = state.sparse_words
         self.sparse_starts_pp = state.sparse_starts_pp
@@ -629,10 +639,12 @@ class DeviceEngine:
         self.lowered_per_partition = 0
         # Mutations reductions: queries for which K2 or K3 launched, by
         # alphabet ("nuc", "aa"), the rows K2 (dense) and K3 (sparse, its
-        # alphabet's) reduced, K3's reductions (one launch per shard each)
-        # and the stream entries they read
+        # alphabet's) reduced, the bank words K2 read (its rows times the
+        # words of the pieces the filter reaches), K3's reductions (one
+        # launch per shard each) and the stream entries they read
         self.mutation_queries = {"nuc": 0, "aa": 0}
         self.mutation_dense_rows = 0
+        self.mutation_dense_words_read = 0
         self.mutation_sparse_rows = 0
         self.mutation_sparse_launches = 0
         self.mutation_sparse_entries_read = 0
@@ -1534,12 +1546,15 @@ class DeviceEngine:
 
     def mutation_counts_many(self, kind: str, names: list[str], filter_words):
         """{name: counts[S, L]}: per (symbol, position) popcount of plane &
-        filter, summed over partitions. Dense rows reduce with the Mutations
-        kernel, sparse rows with one sparse-counts launch over the stream
+        filter, summed over partitions. Dense rows reduce with one launch
+        of the Mutations kernel per shard over the bank rows of all the
+        named segments (one alphabet's segments are one range of rows), in
+        the pieces of their partitions' own words where the filter has a
+        set bit; sparse rows with one sparse-counts launch over the stream
         for all of the alphabet's segments; majority rows reconstruct as
         |filter| - sum(stored counts at pos) (exact under the
         one-symbol-per-position invariant).
-        Every segment's launch is issued before the first readback. A
+        Both launches are issued before the first readback. A
         DeviceFilter with a span records ``mutations.reduce`` under it."""
         span = getattr(filter_words, "span", 0)
         start = time.time_ns() if span else 0
@@ -1550,7 +1565,6 @@ class DeviceEngine:
         full = filter_total == sum(self.part_rows)
         results: dict[str, np.ndarray] = {}
         pending = []
-        need_sparse = False
         row_base = self._sparse_alphabets.get(kind, (0, 0, 0))[1]
         with self._on_stream():
             for name in names:
@@ -1563,32 +1577,39 @@ class DeviceEngine:
                     results[name] = np.zeros(
                         (meta["s_count"], meta["length"]), dtype=np.int64)
                     continue
-                dev = None
-                if meta["n_stored"]:
-                    dev = kernels.mutation_counts_sharded(
-                        self.banks, self._filters_for(filter_words),
-                        meta["offset"], meta["n_stored"])
-                need_sparse = need_sparse or bool(len(meta["sparse_sym_ids"]))
-                pending.append((name, meta, dev))
+                pending.append((name, meta))
+            dense = [meta for _, meta in pending if meta["n_stored"]]
+            dense_lo = min((meta["offset"] for meta in dense), default=0)
+            dense_rows = max((meta["offset"] + meta["n_stored"]
+                              for meta in dense), default=0) - dense_lo
+            dev = (kernels.mutation_counts_sharded(
+                self.banks, self._filters_for(filter_words), dense_lo,
+                dense_rows, self._dense_pieces) if dense_rows else None)
+            need_sparse = any(len(meta["sparse_sym_ids"])
+                              for _, meta in pending)
             sparse_all, sparse_rows, sparse_read = (
                 self._sparse_counts(filter_words, kind)
-                if need_sparse and pending else (None, 0, 0))
-            dense_rows = sum(meta["n_stored"] for _, meta, dev in pending
-                             if dev is not None)
+                if need_sparse else (None, 0, 0))
+            # K2's counts, then the words of each row it read
+            dense_all = (dev.cpu().numpy().astype(np.int64)
+                         if dense_rows else None)
+            dense_read = dense_rows * int(dense_all[-1]) if dense_rows else 0
             if dense_rows or sparse_rows:
                 with self._mutation_lock:
                     self.mutation_queries[kind] += 1
                     self.mutation_dense_rows += dense_rows
+                    self.mutation_dense_words_read += dense_read
                     self.mutation_sparse_rows += sparse_rows
                     if sparse_rows:
                         self.mutation_sparse_launches += 1
                         self.mutation_sparse_entries_read += sparse_read
-            for name, meta, dev in pending:
+            for name, meta in pending:
                 length, s_count = meta["length"], meta["s_count"]
                 counts = np.zeros((s_count, length), dtype=np.int64)
                 per_pos = np.zeros(length, dtype=np.int64)
-                if dev is not None:
-                    stored = dev.cpu().numpy().astype(np.int64)
+                if meta["n_stored"]:
+                    first = meta["offset"] - dense_lo
+                    stored = dense_all[first:first + meta["n_stored"]]
                     counts[meta["sym_ids"], meta["pos_ids"]] = stored
                     np.add.at(per_pos, meta["pos_ids"], stored)
                 n_seg_sparse = len(meta["sparse_sym_ids"])

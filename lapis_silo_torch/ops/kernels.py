@@ -11,8 +11,9 @@ wrote as kernels of their own:
   ``vm_run``; a program may come in segments (a batch's queries) that run
   side by side;
 - ``mutation_counts`` (``csrc/mutation_counts.cu``): popcount(row & filter)
-  per dense bank row, replacing ``:150`` ``mutation_counts_banked`` (naive
-  form);
+  per dense bank row, in the pieces of the row (each partition's own words)
+  where the filter has a set bit, replacing ``:150``
+  ``mutation_counts_banked`` (naive form);
 - ``sparse_counts`` (``csrc/sparse_counts.cu``): the same per sparse-tier
   row of one alphabet over the CSR stream, in the partitions the filter
   reaches, replacing ``:438`` ``sparse_filter_popcount`` and the boundary
@@ -163,7 +164,7 @@ _SIGNATURES = {
     "lapis_vm_run_sharded": [_P, _P, _I32, _P, _I32, _P, _P, _P, _I32, _I32,
                              _I32, _I64, _I32, _I32, _I32, _P, _P, _I64, _P,
                              _I64, _I32, _I32, _P],
-    "lapis_mutation_counts": [_P, _P, _I64, _I64, _I64, _P, _P],
+    "lapis_mutation_counts": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
     "lapis_sparse_counts": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                             _I64, _I32, _I32, _P, _P],
     "lapis_densify_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P,
@@ -964,67 +965,120 @@ def vm_filter_sharded_plain(code: torch.Tensor, n_instr: int, banks: list,
 
 # -- K2: the Mutations reduction --------------------------------------------
 
+# the widest piece of a row K2 takes (csrc/mutation_counts.cu kPieceWords):
+# a block holds its piece's filter words in shared memory
+K2_PIECE_WORDS = 2048
+_row_pieces: dict = {}
+_row_pieces_lock = threading.Lock()
+
+
+def dense_pieces(part_words: int, own_words, w_lo: int,
+                 w_hi: int) -> np.ndarray:
+    """K2's table of row pieces in the word window [w_lo, w_hi): each
+    partition's own words there, cut into pieces of at most K2_PIECE_WORDS
+    (reductions.dense_pieces). int32 [n, 2], in the window's coordinates."""
+    return reductions.dense_pieces(part_words, own_words, w_lo, w_hi,
+                                   K2_PIECE_WORDS).astype(np.int32)
+
+
+def row_pieces(pw: int, device: torch.device) -> torch.Tensor:
+    """K2's table for a row of `pw` words read whole, one partition that
+    spans it, on `device` (made once per width and device)."""
+    key = (pw, torch.device(device))
+    with _row_pieces_lock:
+        table = _row_pieces.get(key)
+        if table is None:
+            table = torch.from_numpy(dense_pieces(pw, [pw], 0, pw)).to(
+                device)
+            _row_pieces[key] = table
+        return table
+
+
 def mutation_counts(bank: torch.Tensor, filters: torch.Tensor, start: int,
-                    n_rows: int) -> torch.Tensor:
-    """counts[r] = popcount(bank[start + r] & filters) summed over the word
-    axis, for r in [0, n_rows): int32[n_rows] on the inputs' device."""
+                    n_rows: int, pieces: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """counts[r] = popcount(bank[start + r] & filters) summed over the words
+    of the pieces (int32 [n, 2] of (lo, hi) on the bank's device,
+    dense_pieces; None: the whole row) where the filter has a set bit, for
+    r in [0, n_rows), and counts[n_rows] the words of each row read
+    (reductions.mutation_counts): int32 [n_rows + 1] on the inputs'
+    device."""
     device = bank.device
     pw = bank.shape[1] if bank.dim() == 2 else -1
     _check("bank", bank, device, (None, None))
     _check("filters", filters, device, (pw,))
+    if pieces is None:
+        pieces = row_pieces(pw, device)
+    _check("pieces", pieces, device, (None, 2))
     if start < 0 or n_rows < 0 or start + n_rows > bank.shape[0]:
         raise ValueError(f"rows [{start}, {start + n_rows}) outside the "
                          f"bank's {bank.shape[0]}")
     if device.type == "cpu":
-        return mutation_counts_plain(bank, filters, start, n_rows)
+        return mutation_counts_plain(bank, filters, start, n_rows, pieces)
     if device.type != "cuda":
         raise ValueError(f"mutation_counts: no kernel for device {device}")
+    if pieces.shape[0] * n_rows >= 2**31:  # a bound on K2's grid
+        raise ValueError(f"{n_rows} rows x {pieces.shape[0]} pieces: "
+                         f"too many blocks for one launch")
     lib = load_library()
-    out = torch.empty(n_rows, dtype=torch.int32, device=device)
+    out = torch.zeros(n_rows + 1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.lapis_mutation_counts(
-            bank.data_ptr(), filters.data_ptr(), start, n_rows, pw,
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            bank.data_ptr(), filters.data_ptr(), pieces.data_ptr(),
+            pieces.shape[0], start, n_rows, pw, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "mutation_counts")
     MUTATION_COUNTS.add()
     return out
 
 
 def mutation_counts_plain(bank: torch.Tensor, filters: torch.Tensor,
-                          start: int, n_rows: int) -> torch.Tensor:
+                          start: int, n_rows: int,
+                          pieces: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """The plain PyTorch version of mutation_counts (ops/reductions.py)."""
     MUTATION_COUNTS.add(plain=True)
-    return reductions.mutation_counts(bank, filters, start, n_rows)
+    if pieces is None:
+        pieces = row_pieces(bank.shape[1], bank.device)
+    return reductions.mutation_counts(bank, filters, start, n_rows, pieces,
+                                      K2_PIECE_WORDS)
 
 
 def mutation_counts_sharded(banks: list, filters: list, start: int,
-                            n_rows: int) -> torch.Tensor:
-    """mutation_counts on every word shard (bank [R, PW/D] and filter
-    [PW/D] on the shard's device), the per-row counts summed on the first
-    shard's device (pallas_kernels.py:777-798): int32[n_rows]."""
-    devices = _shard_devices(filters, banks)
-    counts = [mutation_counts(bank, filt, start, n_rows)
-              for bank, filt in zip(banks, filters)]
+                            n_rows: int, pieces: list | None = None
+                            ) -> torch.Tensor:
+    """mutation_counts on every word shard (bank [R, PW/D], filter [PW/D]
+    and its pieces in the shard's window, or None for its whole window, on
+    the shard's device), the per-row counts and the words read summed on
+    the first shard's device (pallas_kernels.py:777-798): int32
+    [n_rows + 1]."""
+    pieces = pieces or [None] * len(banks)
+    devices = _shard_devices(filters, banks, pieces)
+    counts = [mutation_counts(bank, filt, start, n_rows, table)
+              for bank, filt, table in zip(banks, filters, pieces)]
     MUTATION_COUNTS_SHARDED.add(plain=devices[0].type == "cpu")
     return reduce_sum(counts, devices[0])
 
 
 def mutation_counts_sharded_plain(banks: list, filters: list, start: int,
-                                  n_rows: int) -> torch.Tensor:
+                                  n_rows: int, pieces: list | None = None
+                                  ) -> torch.Tensor:
     """The plain PyTorch version of mutation_counts_sharded."""
-    devices = _shard_devices(filters, banks)
+    pieces = pieces or [None] * len(banks)
+    devices = _shard_devices(filters, banks, pieces)
     MUTATION_COUNTS_SHARDED.add(plain=True)
-    return reduce_sum([mutation_counts_plain(bank, filt, start, n_rows)
-                       for bank, filt in zip(banks, filters)], devices[0])
+    return reduce_sum([mutation_counts_plain(bank, filt, start, n_rows, table)
+                       for bank, filt, table in zip(banks, filters, pieces)],
+                      devices[0])
 
 
 def popcount_rows_and_filter(rows: torch.Tensor,
                              filt: torch.Tensor) -> torch.Tensor:
     """counts[i] = popcount(rows[i] & filt) for every row of rows [R, W]:
-    K2 over all rows (start 0), int32[R]. It replaces
-    popcount_rows_and_filter (pallas_kernels.py:104), whose ROW_BLOCK /
-    WORD_BLOCK padding the kernel does not need."""
-    out = mutation_counts(rows, filt, 0, rows.shape[0])
+    K2 over all rows (start 0) and one partition that spans the row,
+    int32[R]. It replaces popcount_rows_and_filter (pallas_kernels.py:104),
+    whose ROW_BLOCK / WORD_BLOCK padding the kernel does not need."""
+    out = mutation_counts(rows, filt, 0, rows.shape[0])[:rows.shape[0]]
     POPCOUNT_ROWS.add(plain=rows.device.type == "cpu")
     return out
 
@@ -1033,7 +1087,9 @@ def popcount_rows_and_filter_plain(rows: torch.Tensor,
                                    filt: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of popcount_rows_and_filter."""
     POPCOUNT_ROWS.add(plain=True)
-    return reductions.mutation_counts(rows, filt, 0, rows.shape[0])
+    return reductions.mutation_counts(
+        rows, filt, 0, rows.shape[0], row_pieces(rows.shape[1], rows.device),
+        K2_PIECE_WORDS)[:rows.shape[0]]
 
 
 # -- K3: the sparse-tier Mutations reduction --------------------------------

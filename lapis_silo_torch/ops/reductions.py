@@ -10,6 +10,8 @@ of K11 and K10 (``csrc/compact.cu``), ``group_counts``,
 kernels (``csrc/group_counts.cu``, ``csrc/mutation_counts.cu``,
 ``csrc/sparse_counts.cu``): ``ops/kernels.py`` calls them for tensors on the
 CPU, and the tests and ``chip_smoke.py`` hold the kernels against them.
+``dense_pieces`` builds ``mutation_counts``' table of row pieces (each
+partition's own words in a word window);
 ``sparse_segments``, ``segment_blocks``, ``entry_chunks`` and
 ``clip_segments`` build ``sparse_counts``' work list: the stream's non-empty
 (row, partition) segments, cut into the kernel's blocks and split over word
@@ -85,17 +87,52 @@ def group_counts(words: torch.Tensor, codes: torch.Tensor, w_off: int,
     return out.view(n_partitions, n_groups).to(torch.int32)
 
 
+def dense_pieces(part_words: int, own_words, w_lo: int, w_hi: int,
+                 max_words: int) -> np.ndarray:
+    """The pieces of the Mutations reduction's row (``mutation_counts``) in
+    a word window [w_lo, w_hi) of the flat axis, partition p owning the
+    words [p * part_words, (p + 1) * part_words) of which its genomes fill
+    the first own_words[p]: each partition's own words clipped to the
+    window, cut into pieces of at most `max_words`, in the window's
+    coordinates. A partition that straddles two windows has pieces in
+    both; one outside the window, or with no own words in it, has none.
+    int64 [n, 2] of (lo, hi)."""
+    out = []
+    for p, own in enumerate(own_words):
+        lo = max(p * part_words, w_lo)
+        hi = min(p * part_words + min(int(own), part_words), w_hi)
+        out.extend((a - w_lo, min(a + max_words, hi) - w_lo)
+                   for a in range(lo, hi, max_words))
+    return np.asarray(out, dtype=np.int64).reshape(-1, 2)
+
+
 def mutation_counts(bank: torch.Tensor, filters: torch.Tensor, start: int,
-                    n_seg_rows: int) -> torch.Tensor:
-    """counts[r] = sum_w popcount(bank[start + r, w] & filters[w]) over the
-    flat global word axis (partitions folded into words): int32[n_seg_rows]."""
-    step = max(1, _SLICE_WORDS // max(bank.shape[1], 1))
-    out = torch.empty(n_seg_rows, dtype=torch.int32, device=bank.device)
-    for lo in range(0, n_seg_rows, step):
-        hi = min(lo + step, n_seg_rows)
-        rows = bank[start + lo : start + hi]
-        out[lo:hi] = popcount(rows & filters[None, :]).sum(dim=1).to(torch.int32)
-    return out
+                    n_seg_rows: int, pieces, max_words: int) -> torch.Tensor:
+    """counts[r] = sum, over the pieces (lo, hi) of `pieces` (int [n, 2],
+    each clipped to [0, PW) and to `max_words` words from lo) where
+    filters[lo:hi] has a set bit, of sum_w popcount(bank[start + r, w] &
+    filters[w]) over w in [lo, hi); counts[n_seg_rows] = the sum of hi - lo
+    over those pieces, the words of each row read. Over pieces that cover
+    the flat word axis (partitions folded into words) this is the row's
+    count against the whole filter; no rows read no words. int32
+    [n_seg_rows + 1]."""
+    pw = bank.shape[1]
+    out = torch.zeros(n_seg_rows + 1, dtype=torch.int64, device=bank.device)
+    if not n_seg_rows:
+        return out.to(torch.int32)
+    for lo, hi in torch.as_tensor(pieces).reshape(-1, 2).tolist():
+        lo = min(max(lo, 0), pw)
+        hi = min(max(hi, lo), pw, lo + max_words)
+        part = filters[lo:hi]
+        if not bool((part != 0).any()):
+            continue
+        out[n_seg_rows] += hi - lo
+        step = max(1, _SLICE_WORDS // max(hi - lo, 1))
+        for a in range(0, n_seg_rows, step):
+            b = min(a + step, n_seg_rows)
+            rows = bank[start + a:start + b, lo:hi]
+            out[a:b] += popcount(rows & part[None, :]).sum(dim=1)
+    return out.to(torch.int32)
 
 
 def boundary_sums(vals: torch.Tensor, starts: torch.Tensor,

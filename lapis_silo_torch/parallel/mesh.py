@@ -130,7 +130,7 @@ class ShardedQueryStep:
             self._no_sparse, fulls, MAX_REGS)
         words, count = out.words, out.total.to(torch.int32)
         mutation_counts = kernels.mutation_counts_sharded(
-            banks, words, start, SEGMENT_ROWS)
+            banks, words, start, SEGMENT_ROWS)[:SEGMENT_ROWS]
         if not self.mesh.joined:
             return words, count, mutation_counts
         # the other ranks' shards: one int32 sum over the group, which

@@ -20,6 +20,7 @@ from benchmark import lineage
 from benchmark.reference.compare import agrees
 from lapis_silo_torch import tracing
 from lapis_silo_torch.common.symbols import AMINO_ACID, NUCLEOTIDE
+from lapis_silo_torch.ops import bitset, kernels
 from lapis_silo_torch.ops.device_engine import DeviceEngine
 from lapis_silo_torch.query.engine import Query, QueryEngine
 
@@ -198,6 +199,71 @@ def test_sparse_entries_read_are_the_reached_partitions_alphabet_entries(
     engine.mutation_counts_many(kind, names, filt)
     assert engine.mutation_sparse_entries_read == before[0] + want
     assert engine.mutation_sparse_launches == before[1] + 1
+
+
+@pytest.mark.parametrize("action,kind", [("Mutations", "nuc"),
+                                         ("AminoAcidMutations", "aa")])
+@pytest.mark.parametrize("path", ["dense", "two_tier"])
+def test_dense_words_read_are_the_reached_partitions_own_words(
+        corpus, reference, served, path, action, kind):
+    """A lineage filter's Mutations equal the reference while K2 reads, in
+    one launch over the alphabet's dense rows, only the own words of the
+    partitions where the filter has a set bit: its words-read counter
+    advances by the rows times those words, counted with numpy, below the
+    rows times the flat words."""
+    db = served[path]
+    engine = db.device_engine
+    query = _query(action, 0.05, _filter(corpus, "aliased"))
+    before = (engine.mutation_dense_rows, engine.mutation_dense_words_read,
+              kernels.MUTATION_COUNTS.plain_launches)
+    got = db.execute_query(query)
+    assert agrees(reference, query, got), (query, got["queryResult"][:5])
+    rows = engine.mutation_dense_rows - before[0]
+    read = engine.mutation_dense_words_read - before[1]
+    assert rows == sum(meta["n_stored"] for (k, _), meta
+                       in engine.segment_meta.items() if k == kind)
+    assert kernels.MUTATION_COUNTS.plain_launches == before[2] + 1
+    filt = engine.device_filter(Query(query).filter)
+    words = np.concatenate([part.numpy() for part in filt.parts])
+    reached = words.reshape(engine.n_partitions, engine.n_words).any(axis=1)
+    own = sum(bitset.words_for(n) for n, hit
+              in zip(engine.part_rows, reached) if hit)
+    assert 0 < reached.sum() < engine.n_partitions
+    assert 0 < read == rows * own < rows * engine.n_flat_words
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse_min_words", [None, 1])
+def test_mutations_on_the_card_equal_the_reference(corpus, reference, served,
+                                                   cuda_device,
+                                                   sparse_min_words):
+    """The dense and the two-tier bank on the card: K2's one launch per
+    alphabet and K3 answer both alphabets as the reference does, and K2's
+    words read equal the CPU engine's for the same filter."""
+    db = lineage.build_database(corpus)
+    engine = DeviceEngine(db, cuda_device, sparse_min_words=sparse_min_words)
+    db.device_engine, db._engine = engine, QueryEngine(db, engine)
+    cpu = served["dense" if sparse_min_words is None else "two_tier"]
+    for action in ("Mutations", "AminoAcidMutations"):
+        for case in ("aliased", "newest", "majority"):
+            query = _query(action, 0.05, _filter(corpus, case))
+            launches = kernels.MUTATION_COUNTS.launches
+            read = (engine.mutation_dense_words_read,
+                    cpu.device_engine.mutation_dense_words_read)
+            got = db.execute_query(query)
+            assert agrees(reference, query, got), (query,
+                                                   got["queryResult"][:5])
+            assert kernels.MUTATION_COUNTS.launches == launches + 1
+            cpu.execute_query(query)
+            assert (engine.mutation_dense_words_read - read[0]
+                    == cpu.device_engine.mutation_dense_words_read - read[1])
 
 
 # -- spans and counters ----------------------------------------------------------

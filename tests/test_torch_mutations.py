@@ -25,11 +25,15 @@ def _t(array):
 
 
 def _plain(bank, filters, start, n):
+    """The counts of rows [start, start + n) over the whole row; the words
+    read slot after them is checked here: every word of a row, where the
+    filter has a set bit and there are rows."""
     counts = kernels.mutation_counts(torch.from_numpy(bank.view(np.int32)),
                                      torch.from_numpy(filters.view(np.int32)),
                                      start, n)
-    assert counts.dtype == torch.int32
-    return counts.numpy()
+    assert counts.dtype == torch.int32 and counts.shape == (n + 1,)
+    assert int(counts[n]) == (bank.shape[1] if n and filters.any() else 0)
+    return counts.numpy()[:n]
 
 
 def test_plain_mutation_counts_matches_mosaic_kernel_interpreted():
@@ -111,7 +115,7 @@ def test_mutation_counts_kernel_matches_plain_on_card(cuda_device, pw, start):
     want = kernels.mutation_counts(b, f, start, 290)
     got = kernels.mutation_counts(b.to(cuda_device), f.to(cuda_device), start,
                                   290)
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), want) and int(want[290]) == pw
 
 
 @pytest.mark.cuda
