@@ -174,12 +174,29 @@ class QueryEngine:
 
     def _try_fast_count(self, query: Query, span: int = 0,
                         parsed: int = 0) -> dict | None:
-        """The device rows of ``_device_rows``, ordered and sliced."""
-        rows = self._device_rows(query, span, parsed)
+        """The device rows of ``_device_rows``, ordered and sliced. Traced,
+        a group-by's filter and reduction are recorded under the request by
+        the device engine, which finds it in ``tracing.SERVING`` and notes
+        there when its read-back ended, and its assembly from then on
+        here."""
+        traced = [span, parsed, 0] if span else None
+        if traced:
+            tracing.SERVING.group_by = traced
+        try:
+            rows = self._device_rows(query, span, parsed)
+        finally:
+            if traced:
+                tracing.SERVING.group_by = None
         if rows is None:
             return None
         action = query.action
         if action.offset is not None and action.offset >= len(rows):
-            return {"queryResult": []}
-        action._apply_sort(rows)
-        return {"queryResult": action._apply_offset_and_limit(rows)}
+            rows = []
+        else:
+            action._apply_sort(rows)
+            rows = action._apply_offset_and_limit(rows)
+        if traced and traced[2]:
+            recorder = tracing.RECORDER
+            recorder.record(tracing.GROUPBY_ASSEMBLE, traced[2],
+                            time.time_ns(), recorder.new_id(), span)
+        return {"queryResult": rows}

@@ -1,5 +1,5 @@
-"""Spans of the count path and of Mutations, recorded where the work
-happens.
+"""Spans of the count path, of Mutations and of group-by, recorded where
+the work happens.
 
 The switch is the performance logger: spans are recorded exactly while
 ``lapis_silo_torch.performance`` is enabled for INFO (the CLI's
@@ -11,7 +11,13 @@ Mutations request on the device records under its ``request``
 ``mutations.filter`` (the device filter: its lowering and VM launch) and
 ``mutations.assemble`` (the action: the rows on the host and their
 order), and under the latter ``mutations.reduce``
-(``mutation_counts_many``: K2, K3, their read-backs and the majority).
+(``mutation_counts_many``: K2, K3, their read-backs and the majority). A
+traced group-by (``Aggregated`` with ``groupByFields``) on the device
+records under its ``request`` ``groupby.filter`` (parse's end to the
+filter's words on the card) and ``groupby.reduce`` (K9 and its read-back),
+both recorded by ``DeviceEngine.group_counts``, which finds the request in
+``SERVING``, and ``groupby.assemble`` (the per-partition counts to rows:
+the groups with a count, their decode, order and slice).
 
 A span is a row of seven integers (``COLUMNS``) in preallocated arrays
 used as a ring: no Python object per span, so the recorder does not add
@@ -39,10 +45,12 @@ import numpy as np
 NAMES = ("request", "parse", "batcher.enqueue", "batcher.wait",
          "batcher.wake", "batch", "batch.lower", "batch.count",
          "batch.readback", "gc", "mutations.filter", "mutations.reduce",
-         "mutations.assemble")
+         "mutations.assemble", "groupby.filter", "groupby.reduce",
+         "groupby.assemble")
 (REQUEST, PARSE, BATCHER_ENQUEUE, BATCHER_WAIT, BATCHER_WAKE, BATCH,
  BATCH_LOWER, BATCH_COUNT, BATCH_READBACK, GC, MUTATIONS_FILTER,
- MUTATIONS_REDUCE, MUTATIONS_ASSEMBLE) = range(len(NAMES))
+ MUTATIONS_REDUCE, MUTATIONS_ASSEMBLE, GROUPBY_FILTER, GROUPBY_REDUCE,
+ GROUPBY_ASSEMBLE) = range(len(NAMES))
 COLUMNS = ("name", "start", "end", "thread", "id", "parent", "n")
 
 # five rows a count (request, parse, batcher.enqueue, batcher.wait,
@@ -53,6 +61,17 @@ SUMMARY_S = 60
 
 PERFORMANCE_LOGGER = logging.getLogger("lapis_silo_torch.performance")
 log = logging.getLogger(__name__)
+
+
+class _Serving(threading.local):
+    """What the calling thread serves, for spans recorded below the query
+    engine: ``group_by`` is [its request's span, its parse's end, a
+    group-by's read-back's end (0 until one ends)] while it serves a traced
+    request on the device's Aggregated route, else None."""
+    group_by = None
+
+
+SERVING = _Serving()
 
 
 class Recorder:
